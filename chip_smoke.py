@@ -18,15 +18,37 @@ Phases, any failure exits nonzero:
        64 seeded positions; and at that shape on dense scalars, where each
        kernel's time is taken beside its plain version's and the outputs of
        the timed calls are compared;
+     the fixed-base table build's four kernels (fp_mont_mul for Fr and Fq,
+     fb_bases, fb_mult_chunk, fq_batch_inv) at n = 256, c = 8, bits = 254
+     (W = 32, K = 8192, D = 128) on the 52-card Lagrange basis, each against
+     its plain version, then the whole table built by the kernels against the
+     one the plain versions build;
   4. the main path: gen_shuffle_prover_params(52), the public-key refresh for
      a seeded joint key, prove_shuffle with random.Random(seed) on a seeded
      52-card deck; the proof must verify, a tampered deck must not, its sha256
      must equal the JAX package's (tests/data/torch_golden.json), and every
-     kernel must have been launched by that run; then one more proof under
-     torch.profiler gives the device's busy time (device events only) and
-     its idle share of the profiled proof;
-  5. a kernels JSON line, the card line, and last the contract line
+     kernel of the proof must have been launched by that run; then one more
+     proof under torch.profiler gives the device's busy time (device events
+     only) and its idle share of the profiled proof;
+  5. the fixed-base path: KZG.lagrange_fb_table() over the 16384 Lagrange
+     bases (c = 8: 67,108,864 rows, 4.29 GB), timed, with its peak device
+     memory; sampled rows against host scalar multiples; each of its four
+     kernels launched by that build; then each kernel at that build's shapes
+     against its plain version, timed beside it;
+  6. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
+     bound worked out from this run's shapes and what bounds it, and no
+     library call: no PyTorch call computes a BN254 NTT, MSM or table), the
+     card line, and last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Bounds: the larger of the bytes the function must move (each input read
+once, each output written once) over 3.35 TB/s, and its 32-bit integer
+multiplies over the card's multiply rate, 64 per SM per clock (the CUDA C
+Programming Guide's throughput for compute capability 9.0) at the SMs and
+the maximum SM clock the card reports.  A Montgomery product (field.cuh
+fp_mul, 8 x 32-bit limbs) is 264 multiplies: 64 limb products a_j * b_i and
+64 products m * p_j, each a low and a high half, plus the 8 digits m; a
+mixed addition is 13 products, a projective one 14.
 """
 
 import hashlib
@@ -42,6 +64,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden.json")
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+IMUL_PER_SM_CLOCK = 64  # 32-bit integer multiplies, compute capability 9.0
+MULS_PER_PRODUCT = 264  # 32-bit multiplies in one Montgomery product
+MADD_PRODUCTS, PADD_PRODUCTS = 13, 14
+
 
 def log(*args):
     print(*args, flush=True)
@@ -52,6 +79,27 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def imul_rate() -> float:
+    """32-bit integer multiplies per second of the card at its maximum SM
+    clock."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * IMUL_PER_SM_CLOCK * float(mhz) * 1e6
+
+
+def bound(nbytes: int, products: int, rate: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    Montgomery products over the multiply rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = products * MULS_PER_PRODUCT / rate
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def cuda_ms(fn, reps: int = 5):
@@ -69,9 +117,10 @@ def cuda_ms(fn, reps: int = 5):
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest |difference| of the 32-bit limbs of two Montgomery tensors."""
-    a = a.cpu().to(torch.int64) & 0xFFFFFFFF
-    b = b.cpu().to(torch.int64) & 0xFFFFFFFF
+    """Largest |difference| of the 32-bit limbs of two Montgomery tensors,
+    taken on the device of `a`."""
+    a = a.to(torch.int64) & 0xFFFFFFFF
+    b = b.to(a.device).to(torch.int64) & 0xFFFFFFFF
     return int((a - b).abs().max())
 
 
@@ -86,8 +135,8 @@ def point_err(got, want) -> int:
     return err
 
 
-def check_ntt(dev, rng):
-    from uzkge_tpu.constants.bn254 import R_MOD
+def check_ntt(dev, rng, rate):
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
     from uzkge_tpu_torch.ff.field import fr
     from uzkge_tpu_torch.ntt import cuda_ntt
     from uzkge_tpu_torch.ntt.ntt import NTTDomain
@@ -95,7 +144,7 @@ def check_ntt(dev, rng):
     err = 0
     for n, B in ((16384, 8), (131072, 1)):
         vals = [rng.randrange(R_MOD) for _ in range(B * n)]
-        x = fr.to_mont_limbs(vals).reshape(B, n, 8)
+        x = fr.to_mont_limbs(vals, "cpu").reshape(B, n, 8)
         gd, cd = NTTDomain(n, dev), NTTDomain(n, "cpu")
         xg = x.to(dev)
         k = 7
@@ -124,13 +173,16 @@ def check_ntt(dev, rng):
     if e != 0:
         raise AssertionError("ntt_pass disagrees with ntt_pass_plain on the card")
     log(f"ntt_pass (OUT={OUT}, S={S}, IN={IN}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # every stage but the last multiplies each butterfly by its twiddle
+    products = OUT * IN * (S // 2) * (S.bit_length() - 2)
+    nbytes = 2 * OUT * S * IN * 32 + (S // 2) * 32
     return {"max_abs_err": max(err, e), "ms": ms, "plain_ms": plain_ms,
-            "shape": f"OUT={OUT} S={S} IN={IN}"}
+            "shape": f"OUT={OUT} S={S} IN={IN}", **bound(nbytes, products, rate)}
 
 
-def check_msm(dev, rng):
-    from uzkge_tpu.constants.bn254 import R_MOD
-    from uzkge_tpu.curve.bn254 import G1_GEN, g1_add, g1_mul
+def check_msm(dev, rng, rate):
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.curve.bn254 import G1_GEN, g1_add, g1_mul
     from uzkge_tpu_torch.ff.field import fr
     from uzkge_tpu_torch.gen_params import load_srs
     from uzkge_tpu_torch.msm import msm as M
@@ -142,7 +194,7 @@ def check_msm(dev, rng):
     rows = [[rng.randrange(R_MOD) for _ in range(n)] for _ in range(P)]
     rows[0][:5] = [0] * 5
     bases = M.MSMBases(points, dev)
-    std = fr.from_mont(torch.stack([fr.to_mont_limbs(r) for r in rows]).to(dev))
+    std = fr.from_mont(torch.stack([fr.to_mont_limbs(r, dev) for r in rows]))
     K = M.pick_chunks(n, P, dev)
     kb = M.msm_bucket_accumulate(bases.x, bases.y, std, K)
     pb = M.msm_bucket_accumulate_plain(bases.x, bases.y, std, K)
@@ -167,7 +219,7 @@ def check_msm(dev, rng):
 
     # n = 16384, P = 8 on the Lagrange SRS bases, 64 nonzero scalars per row
     n, P = 16384, 8
-    pts = load_srs(n)._lagrange_points
+    pts = load_srs(n, dev)._lagrange_points
     bases = M.MSMBases(pts, dev)
     rows = []
     for _ in range(P):
@@ -175,7 +227,7 @@ def check_msm(dev, rng):
         for i in rng.sample(range(n), 64):
             row[i] = rng.randrange(1, R_MOD)
         rows.append(row)
-    sc = torch.stack([fr.to_mont_limbs(r) for r in rows]).to(dev)
+    sc = torch.stack([fr.to_mont_limbs(r, dev) for r in rows])
     got = M.msm(bases, sc)
     want = []
     for row in rows:
@@ -192,8 +244,8 @@ def check_msm(dev, rng):
     # the main path's commit shape (n = 16384, P = 8, r1_commit), dense
     # scalars: each kernel timed beside its plain version, and the outputs
     # of those timed calls held against each other as affine points
-    sc = torch.stack([fr.to_mont_limbs([rng.randrange(R_MOD) for _ in range(n)])
-                      for _ in range(P)]).to(dev)
+    sc = torch.stack([fr.to_mont_limbs([rng.randrange(R_MOD) for _ in range(n)], dev)
+                      for _ in range(P)])
     std = fr.from_mont(sc)
     K = M.pick_chunks(n, P, dev)
     acc_ms, kb = cuda_ms(lambda: M.msm_bucket_accumulate(bases.x, bases.y, std, K))
@@ -211,10 +263,235 @@ def check_msm(dev, rng):
         f"plain {acc_plain_ms:.4f} ms")
     log(f"msm_bucket_reduce (P={P}, K={K}): kernel {red_ms:.4f} ms, plain {red_plain_ms:.4f} ms")
     shape = f"n={n} P={P} K={K}"
+    buckets = P * K * M.N_WINDOWS * M.N_BUCKETS * 96
+    nonzero = int((M._digits(std) != 0).sum())  # one mixed addition per nonzero digit
+    acc_bound = bound(2 * n * 32 + P * n * 32 + buckets, nonzero * MADD_PRODUCTS, rate)
+    # per (p, w): the fold of 256 buckets over K chunks, 16 segments of 15 buckets
+    # (two additions each) plus 15 segment heads, and the 51-addition combine
+    adds = P * M.N_WINDOWS * (M.N_BUCKETS * (K - 1) + 16 * 30 + 15 + 51)
+    red_bound = bound(buckets + P * M.N_WINDOWS * 96, adds * PADD_PRODUCTS, rate)
     return ({"max_abs_err": max(err_acc, e, e_acc), "ms": acc_ms, "plain_ms": acc_plain_ms,
-             "shape": shape},
+             "shape": shape, **acc_bound},
             {"max_abs_err": max(err_red, e, e_red), "ms": red_ms, "plain_ms": red_plain_ms,
-             "shape": shape})
+             "shape": shape, **red_bound})
+
+
+# ---------------------------------------------------------------- fixed base
+
+PROOF_KERNELS = ("ntt_pass", "msm_bucket_accumulate", "msm_bucket_reduce")
+FB_KERNELS = ("fp_mont_mul", "fb_bases", "fb_mult_chunk", "fq_batch_inv")
+
+
+def fq_rows(points, dev):
+    """Affine points -> (x, y), each (n, 8) Fq Montgomery on `dev`."""
+    from uzkge_tpu_torch.ff.field import fq
+
+    n = len(points)
+    return (fq.to_mont_limbs([p[0] for p in points], dev).reshape(n, 8),
+            fq.to_mont_limbs([p[1] for p in points], dev).reshape(n, 8))
+
+
+def fermat_products() -> int:
+    """Montgomery products of one Fermat inversion x^(q-2) (fixed_base.cuh
+    fq_inv_fermat): a squaring per bit below the top one, a multiply per set
+    bit among them."""
+    from uzkge_tpu_torch.constants.bn254 import Q_MOD
+
+    e = Q_MOD - 2
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def batch_inv_products(N: int) -> int:
+    """Montgomery products of fq_batch_inv on N elements: per tree level one
+    forward and two backward products per element that is not a group's
+    first, and a Fermat inversion per root."""
+    from uzkge_tpu_torch.msm.fixed_base import batch_inv_levels
+
+    levels, roots = batch_inv_levels(N)
+    return sum(3 * (n - m) for n, m in levels) + roots * fermat_products()
+
+
+def compare(errs, name, shape, kernel, plain, reps=3):
+    """Time kernel() and plain() on the same inputs, raise unless their
+    outputs agree limb for limb, record the error under `name`; returns the
+    kernel's outputs (a tuple), its ms and the plain version's ms."""
+    ms, got = cuda_ms(kernel, reps)
+    plain_ms, want = cuda_ms(plain, reps=0)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    e = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if e != 0 or len(got) != len(want):
+        raise AssertionError(f"{name} ({shape}) disagrees with its plain version")
+    errs[name] = max(errs.get(name, 0), e)
+    log(f"{name} ({shape}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, equal")
+    return got, ms, plain_ms
+
+
+def plain_table(x, y, W: int, c: int):
+    """FixedBaseTable's table, built by the plain versions alone on the
+    device of x (there the wrappers would launch the kernels)."""
+    from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul_plain
+    from uzkge_tpu_torch.ff.field import fq
+    from uzkge_tpu_torch.msm import fixed_base as fb
+
+    D, K = 1 << (c - 1), W * x.shape[0]
+    CH = min(16, D)
+    BX, BY, BZ = fb.fb_bases_plain(x, y, W, c)
+    zinv = fb.fq_batch_inv_plain(BZ)
+    bax, bay = fp_mont_mul_plain(fq, BX, zinv), fp_mont_mul_plain(fq, BY, zinv)
+    T = (bax, bay, fq.const(1, x.device).expand(K, 8).contiguous())
+    table = torch.empty((K, D, 16), dtype=torch.int32, device=x.device)
+    for d0 in range(0, D, CH):
+        EX, EY, EZ, *T = fb.fb_mult_chunk_plain(*T, bax, bay, CH)
+        zinv = fb.fq_batch_inv_plain(EZ.view(CH * K, 8))
+        for E, half in ((EX, slice(0, 8)), (EY, slice(8, 16))):
+            table[:, d0 : d0 + CH, half] = fp_mont_mul_plain(
+                fq, E.view(CH * K, 8), zinv).view(CH, K, 8).transpose(0, 1)
+    return table
+
+
+def random_fr(N: int, dev):
+    """N canonical Fr elements (values below 2^252 < r) made on the card."""
+    a = torch.randint(-(1 << 31), 1 << 31, (N, 8), dtype=torch.int32, device=dev)
+    a[:, 7] &= 0x0FFFFFFF
+    return a
+
+
+def check_fixed_base_small(dev, points, errs):
+    """The fixed-base kernels at n = 256, c = 8, bits = 254 (W = 32, K = 8192,
+    D = 128, eight chunks) on the first 256 Lagrange bases, each against its
+    plain version, then the whole table against plain_table."""
+    from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul, fp_mont_mul_plain
+    from uzkge_tpu_torch.ff.field import fq, fr
+    from uzkge_tpu_torch.msm import fixed_base as fb
+
+    n, c, bits = 256, 8, 254
+    W, CH = 32, 16
+    K = W * n
+    x, y = fq_rows(points[:n], dev)
+    B, _, _ = compare(errs, "fb_bases", f"n={n} W={W} c={c}",
+                      lambda: fb.fb_bases(x, y, W, c), lambda: fb.fb_bases_plain(x, y, W, c))
+    (zinv,), _, _ = compare(errs, "fq_batch_inv", f"N={K}", lambda: fb.fq_batch_inv(B[2]),
+                            lambda: fb.fq_batch_inv_plain(B[2]))
+    (bax,), _, _ = compare(errs, "fp_mont_mul", f"Fq N={K}", lambda: fp_mont_mul(fq, B[0], zinv),
+                           lambda: fp_mont_mul_plain(fq, B[0], zinv))
+    bay = fp_mont_mul(fq, B[1], zinv)
+    one = fq.const(1, dev).expand(K, 8).contiguous()
+    E, _, _ = compare(errs, "fb_mult_chunk", f"K={K} CH={CH}",
+                      lambda: fb.fb_mult_chunk(bax, bay, one, bax, bay, CH),
+                      lambda: fb.fb_mult_chunk_plain(bax, bay, one, bax, bay, CH))
+    EZ = E[2].view(CH * K, 8)
+    compare(errs, "fq_batch_inv", f"N={CH * K}", lambda: fb.fq_batch_inv(EZ),
+            lambda: fb.fq_batch_inv_plain(EZ))
+    a, b = random_fr(CH * K, dev), random_fr(CH * K, dev)
+    compare(errs, "fp_mont_mul", f"Fr N={CH * K}", lambda: fp_mont_mul(fr, a, b),
+            lambda: fp_mont_mul_plain(fr, a, b))
+
+    t0 = time.perf_counter()
+    table = fb.FixedBaseTable(points[:n], c=c, bits=bits, device=dev).table
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = plain_table(x, y, W, c)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    e = max_abs_err(table, want)
+    if e != 0:
+        raise AssertionError(f"fixed-base table n={n}: the kernels' table differs from the plain one")
+    log(f"fixed-base table n={n} c={c} bits={bits} ({tuple(table.shape)}): kernels {t1 - t0:.3f} s "
+        f"== plain versions {t2 - t1:.3f} s")
+
+
+def check_table_rows(tbl, rng) -> int:
+    """64 seeded (w, i, d) rows of the table and the 8 corner rows (w, i, d
+    each at its minimum or maximum) against host d * 2^(c*w) * P_i."""
+    from uzkge_tpu_torch.curve.bn254 import g1_mul
+    from uzkge_tpu_torch.ff.field import fq
+
+    n, W, D, c = tbl.n, tbl.W, tbl.D, tbl.c
+    picks = [(rng.randrange(W), rng.randrange(n), rng.randrange(1, D + 1)) for _ in range(64)]
+    picks += [(w, i, d) for w in (0, W - 1) for i in (0, n - 1) for d in (1, D)]
+    leaf = torch.tensor([w * n + i for w, i, _ in picks], device=tbl.table.device)
+    digit = torch.tensor([d - 1 for _, _, d in picks], device=tbl.table.device)
+    rows = tbl.table[leaf, digit].cpu()
+    for (w, i, dd), row in zip(picks, rows):
+        got = (fq.from_mont_limbs(row[:8]), fq.from_mont_limbs(row[8:]))
+        if got != g1_mul(tbl.points[i], dd << (c * w)):
+            raise AssertionError(f"fixed-base table row (w={w}, i={i}, d={dd}) is wrong")
+    return len(picks)
+
+
+def fixed_base_path(dev, rng):
+    """The fixed-base path: KZG.lagrange_fb_table() over the 52-card
+    Lagrange basis, with the launch counts set to 0 just before it."""
+    from uzkge_tpu_torch import kernels
+    from uzkge_tpu_torch.gen_params import load_srs
+
+    kzg = load_srs(16384, dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tbl = kzg.lagrange_fb_table()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in FB_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    t = tbl.table
+    log(f"lagrange_fb_table: n={tbl.n} c={tbl.c} W={tbl.W} D={tbl.D}, table {tuple(t.shape)} = "
+        f"{t.numel() * 4} B, build {build_s:.4f} s; device memory before {before} B, "
+        f"peak during the build {peak} B")
+    log("fixed-base launches: " + json.dumps(launches))
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"the table build launched no {missing}")
+    log(f"fixed-base table: {check_table_rows(tbl, rng)} sampled rows == host bn254 multiples")
+    return tbl, launches
+
+
+def check_fixed_base_full(dev, tbl, rate, errs):
+    """Each fixed-base kernel at the shapes of the table build (n = 16384,
+    W = 32, K = 524288, CH = 16) against its plain version, timed beside it;
+    the build's launches are already counted, so these are not."""
+    from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul, fp_mont_mul_plain
+    from uzkge_tpu_torch.ff.field import fq, fr
+    from uzkge_tpu_torch.msm import fixed_base as fb
+
+    n, W, c = tbl.n, tbl.W, tbl.c
+    K, CH = W * n, min(16, tbl.D)
+    N = CH * K
+    x, y = fq_rows(tbl.points, dev)
+    res = {}
+    shape = f"n={n} W={W} c={c}"
+    B, ms, pms = compare(errs, "fb_bases", shape, lambda: fb.fb_bases(x, y, W, c),
+                         lambda: fb.fb_bases_plain(x, y, W, c), reps=1)
+    res["fb_bases"] = {"ms": ms, "plain_ms": pms, "shape": shape,
+                       **bound(64 * n + 96 * K, PADD_PRODUCTS * n * (W - 1) * c, rate)}
+    zinv = fb.fq_batch_inv(B[2])
+    bax, bay = fp_mont_mul(fq, B[0], zinv), fp_mont_mul(fq, B[1], zinv)
+    one = fq.const(1, dev).expand(K, 8).contiguous()
+    shape = f"K={K} CH={CH}"
+    E, ms, pms = compare(errs, "fb_mult_chunk", shape,
+                         lambda: fb.fb_mult_chunk(bax, bay, one, bax, bay, CH),
+                         lambda: fb.fb_mult_chunk_plain(bax, bay, one, bax, bay, CH))
+    res["fb_mult_chunk"] = {"ms": ms, "plain_ms": pms, "shape": shape,
+                            **bound(5 * 32 * K + 96 * K * (CH + 1), MADD_PRODUCTS * K * CH, rate)}
+    EX, EZ = E[0].view(N, 8), E[2].view(N, 8)
+    shape = f"N={N}"
+    (zinv,), ms, pms = compare(errs, "fq_batch_inv", shape, lambda: fb.fq_batch_inv(EZ),
+                               lambda: fb.fq_batch_inv_plain(EZ))
+    res["fq_batch_inv"] = {"ms": ms, "plain_ms": pms, "shape": shape,
+                           **bound(64 * N, batch_inv_products(N), rate)}
+    shape = f"Fq N={N}"
+    _, ms, pms = compare(errs, "fp_mont_mul", shape, lambda: fp_mont_mul(fq, EX, zinv),
+                         lambda: fp_mont_mul_plain(fq, EX, zinv))
+    res["fp_mont_mul"] = {"ms": ms, "plain_ms": pms, "shape": shape, **bound(96 * N, N, rate)}
+    a, b = random_fr(N, dev), random_fr(N, dev)
+    compare(errs, "fp_mont_mul", f"Fr N={N}", lambda: fp_mont_mul(fr, a, b),
+            lambda: fp_mont_mul_plain(fr, a, b))
+    for name in FB_KERNELS:
+        res[name]["max_abs_err"] = errs[name]
+    return res
 
 
 def profile_prove(seed, pp, kzg, joint, deck, latency):
@@ -263,7 +540,7 @@ def profile_prove(seed, pp, kzg, joint, deck, latency):
 def main_path(dev, golden):
     """The seeded 52-card proof; `golden` is its record in torch_golden.json
     (the seed the JAX package used and its proof's sha256)."""
-    from uzkge_tpu.plonk.proof_io import proof_from_bytes_be, proof_to_bytes_be
+    from uzkge_tpu_torch.plonk.proof_io import proof_from_bytes_be, proof_to_bytes_be
     from uzkge_tpu_torch import kernels
     from uzkge_tpu_torch.plonk.indexer import refresh_prover_params_public_key
     from uzkge_tpu_torch.shuffle import app
@@ -289,7 +566,7 @@ def main_path(dev, golden):
     log(f"prove52 latency: {latency:.3f} s")
     log("stage breakdown (s): " + json.dumps(stagetimer.snapshot()))
     log("main-path launches: " + json.dumps(launches))
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in PROOF_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
 
@@ -329,15 +606,31 @@ def main():
     with open(GOLDEN) as f:
         golden = json.load(f)["52"]
     rng = random.Random(golden["seed"])
-    ntt = check_ntt(dev, rng)
-    acc, red = check_msm(dev, rng)
+    rate = imul_rate()
+    log(f"bounds: {HBM_BYTES_PER_S:.4g} B/s, {rate:.4g} 32-bit multiplies/s")
+    ntt = check_ntt(dev, rng, rate)
+    acc, red = check_msm(dev, rng, rate)
+    from uzkge_tpu_torch.gen_params import load_srs
+
+    errs = {}
+    check_fixed_base_small(dev, load_srs(16384, dev)._lagrange_points, errs)
 
     launches = main_path(dev, golden)
+    tbl, fb_launches = fixed_base_path(dev, rng)
+    launches.update(fb_launches)
+    fbres = check_fixed_base_full(dev, tbl, rate, errs)
 
+    fb_src = "uzkge_tpu_torch/csrc/fixed_base.cu"
     rows = [
         ("ntt_pass", "uzkge_tpu_torch/csrc/ntt.cu", "uzkge_tpu/ntt/pallas_ntt.py:87", ntt),
         ("msm_bucket_accumulate", "uzkge_tpu_torch/csrc/msm.cu", "uzkge_tpu/msm/msm.py:184", acc),
         ("msm_bucket_reduce", "uzkge_tpu_torch/csrc/msm.cu", "uzkge_tpu/msm/msm.py:197", red),
+        ("fp_mont_mul", "uzkge_tpu_torch/csrc/mont_mul.cu", "uzkge_tpu/ff/pallas_field.py:69",
+         fbres["fp_mont_mul"]),
+        ("fb_bases", fb_src, "uzkge_tpu/msm/fixed_base.py:232", fbres["fb_bases"]),
+        ("fb_mult_chunk", fb_src, "uzkge_tpu/msm/fixed_base.py:254", fbres["fb_mult_chunk"]),
+        # _prod_kernel (:274) and _inv_kernel (:283), through pbatch_inv_fq
+        ("fq_batch_inv", fb_src, "uzkge_tpu/msm/fixed_base.py:274", fbres["fq_batch_inv"]),
     ]
     out = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -4,9 +4,11 @@ Two layers are held against the reference here, exactly (field arithmetic
 has no rounding):
   * uzkge_tpu_torch/ff/field.py, the torch-op field (the plain version that
     the CPU runs), against uzkge_tpu/ff/jax_field.py::fr_ctx / fq_ctx;
-  * uzkge_tpu_torch/csrc/field.cuh, the kernels' own arithmetic, compiled
-    with g++ into a small ctypes harness, against fq_ctx / fr_ctx and the
-    host curve arithmetic of uzkge_tpu/curve/bn254.py.
+  * uzkge_tpu_torch/csrc/field.cuh and csrc/fixed_base.cuh, the kernels' own
+    arithmetic, compiled with g++ into a small ctypes harness, against
+    fq_ctx / fr_ctx, the host curve arithmetic of uzkge_tpu/curve/bn254.py,
+    and the fixed-base group chains and batch inversion of the JAX package
+    (msm/fixed_base.py's padd_g / madd_g, ff/vfield.py's batch_inv).
 Inputs come from numpy with a fixed seed plus the edge values 0, 1, p-1 and
 values near 2^254.
 """
@@ -50,7 +52,7 @@ def test_field_ops_match_jax(name, p, jctx, tctx):
     a = _values(p, 120, 1)
     b = list(reversed(_values(p, 120, 2)))
     ja, jb = _jax_limbs(jctx, a), _jax_limbs(jctx, b)
-    ta, tb = tf.from_jax_limbs(ja), tf.from_jax_limbs(jb)
+    ta, tb = tf.from_jax_limbs(ja, "cpu"), tf.from_jax_limbs(jb, "cpu")
     assert (tf.to_jax_limbs(ta) == ja).all()
     for op in ("add", "sub", "mul"):
         want = np.asarray(getattr(jctx, op)(ja, jb))
@@ -62,7 +64,7 @@ def test_field_ops_match_jax(name, p, jctx, tctx):
     assert tctx.from_mont_limbs(ta) == a
     assert tctx.from_mont_limbs(tctx.mul(ta, tb)) == [x * y % p for x, y in zip(a, b)]
     nz = [v for v in a if v][:6]
-    tnz = tctx.to_mont_limbs(nz)
+    tnz = tctx.to_mont_limbs(nz, "cpu")
     assert tctx.from_mont_limbs(tctx.inv(tnz)) == [pow(v, p - 2, p) for v in nz]
     assert (tf.to_jax_limbs(tctx.batch_inv(tnz)) ==
             np.asarray(jctx.batch_inv(_jax_limbs(jctx, nz)))).all()
@@ -73,20 +75,20 @@ def test_field_ops_match_jax(name, p, jctx, tctx):
 def test_field_codecs_match_jax(name, p, jctx, tctx):
     vals = _values(p, 40, 3)
     jl = _jax_limbs(jctx, vals)
-    tl = tctx.to_mont_limbs(vals)
+    tl = tctx.to_mont_limbs(vals, "cpu")
     assert (tf.to_jax_limbs(tl) == jl).all()
-    assert tctx.to_mont_limbs(vals[0]).shape == (8,)
+    assert tctx.to_mont_limbs(vals[0], "cpu").shape == (8,)
     assert tctx.from_mont_limbs(tl[0]) == vals[0]
     blob = jctx.from_mont_bytes(jl)
     assert tctx.from_mont_bytes(tl) == blob
-    back = tctx.to_mont_limbs_from_bytes(blob)
+    back = tctx.to_mont_limbs_from_bytes(blob, "cpu")
     assert (tf.to_jax_limbs(back) == np.asarray(jctx.to_mont_limbs_from_bytes(blob))).all()
 
 
 # ------------------------------------------------ the kernels' own arithmetic
 
 _HARNESS = r"""
-#include "field.cuh"
+#include "fixed_base.cuh"
 extern "C" {
 #define BIN(name, F, fn) \
   void name(uint32_t *r, const uint32_t *a, const uint32_t *b, int n) { \
@@ -114,6 +116,25 @@ void g1_identity(uint32_t *r) {
   G1Proj o; g1_set_identity(o);
   for (int j = 0; j < 8; j++) { r[j] = o.x[j]; r[8+j] = o.y[j]; r[16+j] = o.z[j]; }
 }
+void fb_bases_n(const uint32_t *x, const uint32_t *y, uint32_t *ox, uint32_t *oy, uint32_t *oz,
+                int n, int W, int c) {
+  for (int i = 0; i < n; i++)
+    fb_bases_lane(x + 8 * i, y + 8 * i, ox + 8 * i, oy + 8 * i, oz + 8 * i, W, c, (size_t)n); }
+void fb_mult_chunk_n(const uint32_t *tx, const uint32_t *ty, const uint32_t *tz,
+                     const uint32_t *bx, const uint32_t *by, uint32_t *ox, uint32_t *oy,
+                     uint32_t *oz, uint32_t *fx, uint32_t *fy, uint32_t *fz, int K, int CH) {
+  for (int k = 0; k < K; k++) {
+    const int o = 8 * k;
+    fb_mult_chunk_lane(tx + o, ty + o, tz + o, bx + o, by + o, ox + o, oy + o, oz + o, fx + o,
+                       fy + o, fz + o, CH, (size_t)K);
+  } }
+void fq_inv_prefix_n(const uint32_t *a, uint32_t *pref, uint32_t *prod, long long M, long long N) {
+  for (long long t = 0; t < M; t++) fq_inv_prefix_group(a, pref, prod, t, M, N); }
+void fq_inv_back_n(const uint32_t *a, const uint32_t *pref, const uint32_t *pinv, uint32_t *out,
+                   long long M, long long N) {
+  for (long long t = 0; t < M; t++) fq_inv_back_group(a, pref, pinv, out, t, M, N); }
+void fq_inv_fermat_n(uint32_t *r, const uint32_t *a, int n) {
+  for (int i = 0; i < n; i++) fq_inv_fermat(r + 8 * i, a + 8 * i); }
 }
 """
 
@@ -135,12 +156,17 @@ def header_lib(tmp_path_factory):
         getattr(lib, fn).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.fq_neg_n.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.g1_identity.argtypes = [ctypes.c_void_p]
+    lib.fb_bases_n.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    lib.fb_mult_chunk_n.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+    lib.fq_inv_prefix_n.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+    lib.fq_inv_back_n.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+    lib.fq_inv_fermat_n.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     return lib
 
 
 def _u32(jl):
     """(N, 16) JAX limbs -> contiguous (N, 8) uint32 buffer of 32-bit limbs."""
-    return np.ascontiguousarray(tf.from_jax_limbs(jl).numpy().view(np.uint32))
+    return np.ascontiguousarray(tf.from_jax_limbs(jl, "cpu").numpy().view(np.uint32))
 
 
 def _call(fn, width, *bufs):
@@ -158,12 +184,12 @@ def test_field_header_matches_jax(header_lib, name, p, jctx, tctx):
     ua, ub = _u32(ja), _u32(jb)
     for op in ("mul", "add", "sub"):
         got = _call(getattr(header_lib, f"{name}_{op}_n"), 8, ua, ub)
-        want = tf.from_jax_limbs(np.asarray(getattr(jctx, op)(ja, jb))).numpy().view(np.uint32)
+        want = tf.from_jax_limbs(np.asarray(getattr(jctx, op)(ja, jb)), "cpu").numpy().view(np.uint32)
         assert (got == want).all(), op
     if name == "fq":
         got = np.zeros_like(ua)
         header_lib.fq_neg_n(got.ctypes.data, ua.ctypes.data, len(a))
-        want = tf.from_jax_limbs(np.asarray(jctx.neg(ja))).numpy().view(np.uint32)
+        want = tf.from_jax_limbs(np.asarray(jctx.neg(ja)), "cpu").numpy().view(np.uint32)
         assert (got == want).all()
 
 
@@ -173,7 +199,7 @@ def _proj_rows(points, zs):
     rows = []
     for pt, z in zip(points, zs):
         X, Y, Z = (0, 1, 0) if pt is None else (pt[0] * z % Q_MOD, pt[1] * z % Q_MOD, z)
-        rows.append(tf.fq.to_mont_limbs([X, Y, Z]).numpy().view(np.uint32).reshape(24))
+        rows.append(tf.fq.to_mont_limbs([X, Y, Z], "cpu").numpy().view(np.uint32).reshape(24))
     return np.stack(rows)
 
 
@@ -201,7 +227,7 @@ def test_curve_header_matches_host_bn254(header_lib):
     want = [g1_add(x, y) for x, y in zip(lhs, rhs)]
 
     P = _proj_rows(lhs, zs)
-    aff = np.stack([tf.fq.to_mont_limbs([q[0], q[1]]).numpy().view(np.uint32).reshape(16)
+    aff = np.stack([tf.fq.to_mont_limbs([q[0], q[1]], "cpu").numpy().view(np.uint32).reshape(16)
                     for q in rhs])
     got = _call(header_lib.g1_madd_n, 24, P, aff)
     assert _affine(got) == want
@@ -214,3 +240,86 @@ def test_curve_header_matches_host_bn254(header_lib):
     ident = np.zeros(24, np.uint32)
     header_lib.g1_identity(ident.ctypes.data)
     assert _affine(ident[None]) == [None]
+
+
+def _jax_v(vals):
+    """python ints -> the JAX package's (16, N) Fq Montgomery layout."""
+    import jax.numpy as jnp
+
+    return jnp.moveaxis(fq_ctx.to_mont_limbs(vals).reshape(len(vals), 16), -1, 0)
+
+
+def _rows_of_v(v):
+    """(16, N) JAX layout -> contiguous (N, 8) uint32 rows of 32-bit limbs."""
+    return _u32(np.moveaxis(np.asarray(v), 0, -1))
+
+
+def test_fixed_base_chains_match_jax(header_lib):
+    """fixed_base.cuh's lanes, compiled by g++: the doubling chain of
+    fb_bases (W = 3, c = 2) against padd_g(T, T) over the JAX package's
+    vfield, and the multiple chain of fb_mult_chunk (CH = 3) against
+    madd_g, both on projective coordinates, exactly."""
+    from uzkge_tpu.ff.vfield import vfq
+    from uzkge_tpu.msm.fixed_base import madd_g, padd_g
+
+    n, W, c, CH = 5, 3, 2, 3
+    rs = np.random.default_rng(8)
+    pts = [g1_mul(G1_GEN, int(k)) for k in rs.integers(1, 1 << 62, size=2 * n)]
+    x, y = _jax_v([p[0] for p in pts[:n]]), _jax_v([p[1] for p in pts[:n]])
+    T = (x, y, vfq.one_mont_like(x))
+    emitted = []
+    for w in range(W):
+        emitted.append(T)
+        if w + 1 < W:
+            for _ in range(c):
+                T = padd_g(vfq, T, T)
+    ins = [_rows_of_v(x), _rows_of_v(y)]
+    outs = [np.zeros((W * n, 8), np.uint32) for _ in range(3)]
+    header_lib.fb_bases_n(*(a.ctypes.data for a in ins + outs), n, W, c)
+    for j in range(3):
+        want = np.concatenate([_rows_of_v(e[j]) for e in emitted])
+        assert (outs[j] == want).all(), j
+
+    T = emitted[-1]  # projective, Z != 1
+    bx, by = _jax_v([p[0] for p in pts[n:]]), _jax_v([p[1] for p in pts[n:]])
+    emitted = []
+    for _ in range(CH):
+        emitted.append(T)
+        T = madd_g(vfq, T, (bx, by))
+    ins = [_rows_of_v(v) for v in (*emitted[0], bx, by)]
+    outs = [np.zeros((CH * n, 8), np.uint32) for _ in range(3)]
+    fin = [np.zeros((n, 8), np.uint32) for _ in range(3)]
+    header_lib.fb_mult_chunk_n(*(a.ctypes.data for a in ins + outs + fin), n, CH)
+    for j in range(3):
+        assert (outs[j] == np.concatenate([_rows_of_v(e[j]) for e in emitted])).all(), j
+        assert (fin[j] == _rows_of_v(T[j])).all(), j
+
+
+def test_fq_batch_inv_sweeps_match_jax(header_lib):
+    """fq_batch_inv's per-group prefix and backward sweeps and its Fermat
+    root inversion, compiled by g++, driven through the product tree of
+    fixed_base.batch_inv_levels as the wrapper drives the kernels (the
+    backward sweep in place over the prefixes), against vfq.batch_inv, at
+    N = 4500 (one level of 282 ragged strided groups) with p - 1 and 1."""
+    from uzkge_tpu.ff.vfield import vfq
+    from uzkge_tpu_torch.msm.fixed_base import batch_inv_levels
+
+    N = 4500
+    vals = [v or 1 for v in _values(Q_MOD, N - 7, 9)]
+    vals[:2] = [Q_MOD - 1, 1]
+    a = _rows_of_v(_jax_v(vals))
+    levels, nroots = batch_inv_levels(N)
+    assert levels == [(N, 282)]
+    cur, down = a, []
+    for n_l, m_l in levels:
+        pref, prod = np.zeros((n_l, 8), np.uint32), np.zeros((m_l, 8), np.uint32)
+        header_lib.fq_inv_prefix_n(cur.ctypes.data, pref.ctypes.data, prod.ctypes.data, m_l, n_l)
+        down.append((cur, pref))
+        cur = prod
+    inv = np.zeros((nroots, 8), np.uint32)
+    header_lib.fq_inv_fermat_n(inv.ctypes.data, cur.ctypes.data, nroots)
+    for (src, pref), (n_l, m_l) in zip(reversed(down), reversed(levels)):
+        header_lib.fq_inv_back_n(src.ctypes.data, pref.ctypes.data, inv.ctypes.data,
+                                 pref.ctypes.data, m_l, n_l)
+        inv = pref
+    assert (inv == _rows_of_v(vfq.batch_inv(_jax_v(vals)))).all()

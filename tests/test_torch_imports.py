@@ -1,9 +1,12 @@
-"""The torch port runs without JAX.
+"""The torch port stands alone: no JAX, and nothing of the JAX package.
 
-The card's machine has no JAX, so neither uzkge_tpu_torch nor chip_smoke.py
-may import it, even through a `uzkge_tpu` module.  A subprocess with
-sys.modules['jax'] = None (any `import jax` then raises) imports every
-module of the port and builds and verifies a tiny proof.
+The card's machine has no JAX, and the port keeps its own copies of the host
+modules it needs, so neither uzkge_tpu_torch nor chip_smoke.py may import
+`jax` or any `uzkge_tpu` module (the parameter binaries under
+uzkge_tpu/parameters/ are read by path, as data).  A subprocess with
+sys.modules['jax'] = sys.modules['uzkge_tpu'] = None (any import of either
+then raises) imports every module of the port and builds and verifies a tiny
+proof with the port's own TurboCS, gadgets and Transcript.
 """
 
 import ast
@@ -12,21 +15,24 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "uzkge_tpu_torch")
 
 _SCRIPT = r"""
 import importlib, pkgutil, random, sys
 sys.modules["jax"] = None
+sys.modules["uzkge_tpu"] = None
 import torch
 torch.set_num_threads(1)
 import uzkge_tpu_torch
 for m in pkgutil.walk_packages(uzkge_tpu_torch.__path__, "uzkge_tpu_torch."):
     importlib.import_module(m.name)
 
-from uzkge_tpu.plonk.cs import TurboCS
-import uzkge_tpu.plonk.gadgets
-from uzkge_tpu.utils.transcript import Transcript
+from uzkge_tpu_torch.plonk.cs import TurboCS
+import uzkge_tpu_torch.plonk.gadgets
+from uzkge_tpu_torch.utils.transcript import Transcript
 from uzkge_tpu_torch.pcs.kzg import KZG
 from uzkge_tpu_torch.plonk.indexer import indexer
 from uzkge_tpu_torch.plonk.prover import prover
@@ -38,19 +44,19 @@ cs.insert_add_gate(a, b, c)
 cs.prepare_pi_variable(c)
 cs.pad(min_size=8)
 w = cs.get_and_clear_witness()
-kzg = KZG.setup_insecure(2 * cs.size + 10, tau=1234567)
+kzg = KZG.setup_insecure(2 * cs.size + 10, tau=1234567, device="cpu")
 pp = indexer(cs, kzg, with_shuffle=False)
 proof = prover(random.Random(1), Transcript(b"T"), kzg, cs, pp, w)
 online = [w[i] for i in cs.public_vars_witness_indices]
 assert verifier(Transcript(b"T"), kzg, pp.verifier_params, online, proof)
-jaxy = sorted(k for k, v in sys.modules.items()
-              if v is not None and (k == "jax" or k.startswith("jax.") or k.startswith("jaxlib")))
-assert not jaxy, jaxy
+foreign = sorted(k for k, v in sys.modules.items() if v is not None and
+                 k.split(".")[0] in ("jax", "jaxlib", "uzkge_tpu"))
+assert not foreign, foreign
 print("NOJAX-OK")
 """
 
 
-def test_port_imports_and_proves_without_jax():
+def test_port_imports_and_proves_without_jax_or_the_jax_package():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env,
@@ -71,23 +77,43 @@ def _imported_modules(path):
                 yield f"{node.module}.{a.name}"
 
 
-# uzkge_tpu modules the port may import: the JAX-free host side
-_HOST_OK = ("uzkge_tpu.constants", "uzkge_tpu.curve", "uzkge_tpu.hash", "uzkge_tpu.crypto",
-            "uzkge_tpu.errors", "uzkge_tpu.ff.field", "uzkge_tpu.plonk.cs",
-            "uzkge_tpu.plonk.gadgets", "uzkge_tpu.plonk.helpers", "uzkge_tpu.plonk.proof_io",
-            "uzkge_tpu.utils.transcript", "uzkge_tpu.utils.serialize", "uzkge_tpu.utils.chacha",
-            "uzkge_tpu.native_host", "uzkge_tpu.pcs.pairing", "uzkge_tpu.shuffle.primitives")
-
-
-def test_port_sources_import_only_host_modules():
+def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
-    assert len(files) > 10
+    assert len(files) > 30
     for path in files:
         for mod in _imported_modules(path):
-            assert mod != "jax" and not mod.startswith("jax."), (path, mod)
-            if mod.startswith("uzkge_tpu.") or mod == "uzkge_tpu":
-                assert mod.startswith(_HOST_OK), (path, mod)
-    assert {m.name for m in pkgutil.iter_modules([PORT])} >= {"ff", "ntt", "msm", "pcs", "plonk",
-                                                               "shuffle", "utils", "gen_params"}
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "uzkge_tpu"), (path, mod)
+    assert {m.name for m in pkgutil.iter_modules([PORT])} >= {
+        "constants", "curve", "ff", "hash", "msm", "ntt", "pcs", "plonk", "shuffle", "utils",
+        "errors", "native_host", "gen_params", "device", "kernels"}
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no card, every public entry point given no device raises rather
+    than fall back to the CPU; given device="cpu" it runs there."""
+    import torch
+
+    from uzkge_tpu_torch.curve.bn254 import G1_GEN
+    from uzkge_tpu_torch.device import resolve
+    from uzkge_tpu_torch.ff.field import fq, fr, from_jax_limbs
+    from uzkge_tpu_torch.gen_params import load_srs
+    from uzkge_tpu_torch.msm.fixed_base import FixedBaseTable
+    from uzkge_tpu_torch.msm.msm import MSMBases
+    from uzkge_tpu_torch.ntt.ntt import NTTDomain, get_domain
+    from uzkge_tpu_torch.pcs.kzg import KZG
+    from uzkge_tpu_torch.shuffle.app import gen_shuffle_prover_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = [G1_GEN] * 4
+    for call in (lambda: resolve(), lambda: resolve("cuda"), lambda: NTTDomain(8),
+                 lambda: get_domain(8), lambda: MSMBases(pts), lambda: KZG(pts, []),
+                 lambda: load_srs(4096), lambda: FixedBaseTable(pts, c=4, bits=30),
+                 lambda: fr.to_mont_limbs([1]), lambda: fq.const(1),
+                 lambda: from_jax_limbs([[0] * 16]), lambda: gen_shuffle_prover_params(1)):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            call()
+    assert resolve("cpu") == torch.device("cpu")
+    assert MSMBases(pts, "cpu").x.device.type == "cpu"

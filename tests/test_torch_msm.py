@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from uzkge_tpu.constants.bn254 import R_MOD
-from uzkge_tpu.curve.bn254 import G1_GEN, g1_mul
+from uzkge_tpu_torch.constants.bn254 import R_MOD
+from uzkge_tpu_torch.curve.bn254 import G1_GEN, g1_mul
 from uzkge_tpu_torch import kernels
 from uzkge_tpu_torch.ff import field as tf
 from uzkge_tpu_torch.msm import msm as tm
@@ -47,8 +47,8 @@ def test_msm_matches_jax():
     points, rows = _inputs(n, P, 7)
     jsc = fr_ctx.to_mont_limbs([s for r in rows for s in r]).reshape(P, n, 16)
     want = jm.msm(jm.MSMBases(points), jsc)
-    tsc = tf.from_jax_limbs(np.asarray(jsc))
-    got = tm.msm(tm.MSMBases(points), tsc)
+    tsc = tf.from_jax_limbs(np.asarray(jsc), "cpu")
+    got = tm.msm(tm.MSMBases(points, "cpu"), tsc)
     assert got == want
     assert got[2] is None
 
@@ -57,11 +57,11 @@ def test_msm_entry_points_and_host_path():
     """List inputs, the single-row forms and the host Pippenger below
     HOST_MSM_MAX all agree."""
     points, rows = _inputs(64, 2, 9)
-    bases = tm.MSMBases(points)
+    bases = tm.MSMBases(points, "cpu")
     want = [tm.host_msm(points, r) for r in rows]
     assert tm.msm(bases, rows) == want  # host path: n <= HOST_MSM_MAX
     assert tm.msm(bases, rows[1]) == want[1]
-    t = tf.fr.to_mont_limbs(rows[1]).reshape(64, 8)
+    t = tf.fr.to_mont_limbs(rows[1], "cpu").reshape(64, 8)
     assert tm.msm(bases, t) == want[1]  # a tensor always takes the device path
 
 
@@ -69,8 +69,8 @@ def test_plain_halves_compose_across_chunkings():
     """Accumulate with one chunking and another: the reduction gives the same
     affine window sums (buckets agree up to the projective representative)."""
     points, rows = _inputs(96, 2, 11)
-    bases = tm.MSMBases(points)
-    std = tf.fr.from_mont(torch.stack([tf.fr.to_mont_limbs(r) for r in rows]))
+    bases = tm.MSMBases(points, "cpu")
+    std = tf.fr.from_mont(torch.stack([tf.fr.to_mont_limbs(r, "cpu") for r in rows]))
     sums = [tm._window_sums_to_points(
         tm.msm_bucket_reduce(tm.msm_bucket_accumulate(bases.x, bases.y, std, K)))
         for K in (1, 5)]
@@ -103,7 +103,7 @@ def test_msm_kernels_match_plain(cuda_device):
     n, P = 2048, 3
     points, rows = _inputs(n, P, 13)
     bases = tm.MSMBases(points, cuda_device)
-    sc = torch.stack([tf.fr.to_mont_limbs(r) for r in rows]).to(cuda_device)
+    sc = torch.stack([tf.fr.to_mont_limbs(r, cuda_device) for r in rows]).to(cuda_device)
     std = tf.fr.from_mont(sc)
     K = tm.pick_chunks(n, P, cuda_device)
     before = dict(kernels.LAUNCHES)

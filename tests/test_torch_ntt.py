@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from uzkge_tpu.constants.bn254 import R_MOD
+from uzkge_tpu_torch.constants.bn254 import R_MOD
 from uzkge_tpu_torch import kernels
 from uzkge_tpu_torch.ff import field as tf
 from uzkge_tpu_torch.ntt import cuda_ntt
@@ -47,7 +47,7 @@ def test_stage_twiddles_match_jax():
 
     n = 64
     jd = JaxDomain(n)
-    master = tf.from_jax_limbs(np.asarray(jd.master))
+    master = tf.from_jax_limbs(np.asarray(jd.master), "cpu")
     for size, stride, inverse in ((16, 4, False), (16, 4, True), (64, 1, True)):
         got = stage_twiddles_strided(master, n, size, stride, inverse)
         want = jax_tws(jd.master, n, size, stride, inverse)
@@ -62,11 +62,11 @@ def test_domain_matches_jax(n, smax, monkeypatch):
     from uzkge_tpu.ntt.ntt import NTTDomain as JaxDomain
 
     monkeypatch.setattr(cuda_ntt, "SMAX", smax)
-    jd, td = JaxDomain(n), NTTDomain(n)
+    jd, td = JaxDomain(n), NTTDomain(n, "cpu")
     if smax < n:
         assert "S2" in td._plan_fwd, "the four-step recursion must run"
     jx = _rand_mont(2 * n, n).reshape(2, n, 16)
-    tx = tf.from_jax_limbs(np.asarray(jx))
+    tx = tf.from_jax_limbs(np.asarray(jx), "cpu")
     k = 5
     ev = td.fft_batch(tx)
     assert _eq(ev, jd.fft_batch(jx))
@@ -109,11 +109,11 @@ def test_ntt_pass_matches_pallas_direct_kernel(interpret_pallas, monkeypatch):  
                                     jnp.moveaxis(pre, -1, 0), jnp.moveaxis(post, -1, 0), None)
         want = np.moveaxis(np.asarray(want), 0, -1)
 
-        master = tf.from_jax_limbs(np.asarray(jd.master))
+        master = tf.from_jax_limbs(np.asarray(jd.master), "cpu")
         tw = stage_twiddles_strided(master, n, S, 2, inverse)[0]
-        got = cuda_ntt.ntt_pass(tf.from_jax_limbs(np.asarray(x)), tw,
-                                pre=tf.from_jax_limbs(np.asarray(pre)).reshape(S, IN, 8),
-                                post=tf.from_jax_limbs(np.asarray(post)).reshape(S, IN, 8))
+        got = cuda_ntt.ntt_pass(tf.from_jax_limbs(np.asarray(x), "cpu"), tw,
+                                pre=tf.from_jax_limbs(np.asarray(pre), "cpu").reshape(S, IN, 8),
+                                post=tf.from_jax_limbs(np.asarray(post), "cpu").reshape(S, IN, 8))
         assert (tf.to_jax_limbs(got) == want).all()
 
 
@@ -125,10 +125,10 @@ def test_domain_matches_pallas_fft_path(interpret_pallas, monkeypatch):  # noqa:
     n = 16
     jd = nttmod.NTTDomain(n)
     assert jd._pallas and "S2" in jd._pplan_fwd
-    td = NTTDomain(n)
+    td = NTTDomain(n, "cpu")
     assert "S2" in td._plan_fwd["plan2"]
     jx = _rand_mont(n, 51)
-    tx = tf.from_jax_limbs(np.asarray(jx))
+    tx = tf.from_jax_limbs(np.asarray(jx), "cpu")
     assert _eq(td.fft(tx), jd.fft(jx))
     assert _eq(td.ifft(tx), jd.ifft(jx))
     assert _eq(td.coset_fft(tx, 7), jd.coset_fft(jx, 7))
@@ -166,7 +166,7 @@ def test_ntt_pass_kernel_matches_plain(cuda_device, S, IN):
 
     def rand(shape):
         vals = [rng.randrange(R_MOD) for _ in range(int(np.prod(shape)))]
-        return tf.fr.to_mont_limbs(vals).reshape(*shape, 8)
+        return tf.fr.to_mont_limbs(vals, "cpu").reshape(*shape, 8)
 
     x, tw = rand((OUT, S, IN)), rand((S // 2,))
     pre, post, const = rand((S, IN)), rand((S, IN)), rand(())

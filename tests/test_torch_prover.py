@@ -1,7 +1,8 @@
 """The torch port's prover slice against the JAX package, exactly.
 
 On the add-gate circuit proven under the shuffle protocol shape
-(tests/test_plonk_e2e.py:49-60, n = 64, KZG.setup_insecure):
+(tests/test_plonk_e2e.py:49-60, n = 64, KZG.setup_insecure), built by each
+package with its own TurboCS:
   * the port's indexer against the JAX one, array by array;
   * `prover` on both packages with random.Random(99): byte-identical
     proof_io bytes, accepted by both verifiers.
@@ -17,11 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from uzkge_tpu.constants.bn254 import R_MOD
-from uzkge_tpu.plonk.cs import TurboCS
-from uzkge_tpu.plonk.proof_io import proof_to_bytes_be
-from uzkge_tpu.utils.transcript import Transcript
+from uzkge_tpu.plonk.proof_io import proof_to_bytes_be as jax_proof_to_bytes_be
+from uzkge_tpu.utils.transcript import Transcript as JaxTranscript
+from uzkge_tpu_torch.constants.bn254 import R_MOD
 from uzkge_tpu_torch.ff import field as tf
+from uzkge_tpu_torch.plonk.proof_io import proof_to_bytes_be
+from uzkge_tpu_torch.utils.transcript import Transcript
 
 torch.set_num_threads(1)
 
@@ -29,9 +31,7 @@ TAU = 987654321987654321
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_golden.json")
 
 
-def _add_gate_circuit():
-    import uzkge_tpu.plonk.gadgets  # noqa: F401  (attaches gadget methods)
-
+def _add_gate_circuit(TurboCS):
     cs = TurboCS()
     v1 = cs.new_variable(1)
     v2 = cs.new_variable(2)
@@ -44,24 +44,31 @@ def _add_gate_circuit():
 
 @pytest.fixture(scope="module")
 def both():
-    """The same circuit, SRS and rng through both packages.  The port commits
+    """The same circuit (each package's own TurboCS), SRS and rng through
+    both packages.  The port commits
     in the Lagrange basis through its device MSM; the JAX package, given the
     same SRS without Lagrange bases, commits in the coefficient basis with
     its host Pippenger.  A polynomial has one commitment whatever the basis,
     so equal proof bytes hold both commit paths to each other."""
+    import uzkge_tpu.plonk.gadgets  # noqa: F401  (attaches gadget methods)
+    import uzkge_tpu_torch.plonk.gadgets  # noqa: F401
     from uzkge_tpu.pcs.kzg import KZG as JaxKZG
+    from uzkge_tpu.plonk.cs import TurboCS as JaxTurboCS
     from uzkge_tpu.plonk.indexer import indexer as jax_indexer
     from uzkge_tpu.plonk.prover import prover as jax_prover
     from uzkge_tpu_torch.pcs.kzg import KZG
+    from uzkge_tpu_torch.plonk.cs import TurboCS
     from uzkge_tpu_torch.plonk.indexer import indexer
     from uzkge_tpu_torch.plonk.prover import prover
 
-    cs, witness = _add_gate_circuit()
+    jcs, jwitness = _add_gate_circuit(JaxTurboCS)
+    cs, witness = _add_gate_circuit(TurboCS)
+    assert witness == jwitness
     n = cs.size
-    tkzg = KZG.setup_insecure(2 * n + 10, tau=TAU, domain_n=n)
+    tkzg = KZG.setup_insecure(2 * n + 10, tau=TAU, domain_n=n, device="cpu")
     jkzg = JaxKZG(tkzg.g1_powers, tkzg.g2_powers)
-    jpp = jax_indexer(cs, jkzg, with_shuffle=True)
-    jproof = jax_prover(random.Random(99), Transcript(b"Test"), jkzg, cs, jpp, witness)
+    jpp = jax_indexer(jcs, jkzg, with_shuffle=True)
+    jproof = jax_prover(random.Random(99), JaxTranscript(b"Test"), jkzg, jcs, jpp, jwitness)
     tpp = indexer(cs, tkzg, with_shuffle=True)
     tproof = prover(random.Random(99), Transcript(b"Test"), tkzg, cs, tpp, witness)
     return dict(cs=cs, witness=witness, jkzg=jkzg, jpp=jpp, jproof=jproof,
@@ -73,7 +80,7 @@ def test_setup_insecure_matches_jax(both):
     from uzkge_tpu_torch.pcs.kzg import KZG
 
     j = JaxKZG.setup_insecure(9, tau=TAU, domain_n=4)
-    k = KZG.setup_insecure(9, tau=TAU, domain_n=4)
+    k = KZG.setup_insecure(9, tau=TAU, domain_n=4, device="cpu")
     assert k.g1_powers == j.g1_powers and k.g2_powers == j.g2_powers
     assert k._lagrange_points == j._lagrange_points
     assert k.lagrange_n == 4 and k.max_contig == 10
@@ -105,7 +112,7 @@ def test_indexer_host_parts_match_jax(both):
 
 def test_proof_bytes_match_jax(both):
     tb = proof_to_bytes_be(both["tproof"])
-    jb = proof_to_bytes_be(both["jproof"])
+    jb = jax_proof_to_bytes_be(both["jproof"])
     assert len(tb) == len(jb) and tb == jb
 
 
@@ -117,7 +124,7 @@ def test_verifiers_accept_and_reject(both):
     online = [w[i] for i in cs.public_vars_witness_indices]
     vk = both["tpp"].verifier_params
     assert verifier(Transcript(b"Test"), both["tkzg"], vk, online, both["tproof"])
-    assert jax_verifier(Transcript(b"Test"), both["jkzg"], both["jpp"].verifier_params,
+    assert jax_verifier(JaxTranscript(b"Test"), both["jkzg"], both["jpp"].verifier_params,
                         online, both["tproof"])
     bad = [(online[0] + 1) % R_MOD] + online[1:]
     assert not verifier(Transcript(b"Test"), both["tkzg"], vk, bad, both["tproof"])
@@ -126,7 +133,7 @@ def test_verifiers_accept_and_reject(both):
 def test_prover_params_from_jax(both):
     from uzkge_tpu_torch.plonk.indexer import prover_params_from_jax
 
-    pp = prover_params_from_jax(both["jpp"])
+    pp = prover_params_from_jax(both["jpp"], "cpu")
     for name in _ARRAYS:
         assert torch.equal(getattr(pp, name), getattr(both["tpp"], name)), name
     assert pp.verifier_params == both["tpp"].verifier_params
@@ -148,7 +155,7 @@ def test_gen_params_match_jax():
 
     assert asdict(tgp.load_shuffle_verifier_params(52)) == \
         asdict(jgp.load_shuffle_verifier_params(52))
-    t, j = tgp.load_srs(4096), jgp.load_srs(4096)
+    t, j = tgp.load_srs(4096, "cpu"), jgp.load_srs(4096)
     assert t.g1_powers == j.g1_powers and t.g2_powers == j.g2_powers
     assert t.lagrange_n == j.lagrange_n == 4096
 
@@ -157,9 +164,12 @@ def test_build_cs_matches_jax():
     from uzkge_tpu.shuffle import app as japp
     from uzkge_tpu_torch.shuffle import app as tapp
 
+    from uzkge_tpu.shuffle.primitives import Ciphertext as JaxCiphertext
+
     joint, deck = tapp.seeded_game(random.Random(5), 1)
+    jdeck = [JaxCiphertext(c.e1, c.e2) for c in deck]
     tcs, tout = tapp.build_cs(random.Random(6), joint, deck)
-    jcs, jout = japp.build_cs(random.Random(6), joint, deck)
+    jcs, jout = japp.build_cs(random.Random(6), joint, jdeck)
     assert tcs.size == jcs.size
     assert tcs.get_and_clear_witness() == jcs.get_and_clear_witness()
     assert [o.as_list() for o in tout] == [o.as_list() for o in jout]
@@ -175,5 +185,5 @@ def test_20_card_proof_matches_jax_digest():
     from .torch_golden import proof_digest
 
     golden = json.load(open(GOLDEN))["20"]
-    assert proof_digest(app, refresh_prover_params_public_key, 20, golden["seed"]) == \
-        golden["sha256"]
+    assert proof_digest(app, refresh_prover_params_public_key, 20, golden["seed"],
+                        device="cpu") == golden["sha256"]

@@ -19,14 +19,17 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden.json")
 SEED = 52
 
 
-def proof_digest(app, refresh, n_cards: int, seed: int = SEED) -> str:
-    """sha256 of the on-chain bytes of the seeded n-card shuffle proof."""
-    from uzkge_tpu.plonk.proof_io import proof_to_bytes_be
+def proof_digest(app, refresh, n_cards: int, seed: int = SEED, **params) -> str:
+    """sha256 of the on-chain bytes of the seeded n-card shuffle proof made by
+    `app` (either package's shuffle app; `params` go to its
+    gen_shuffle_prover_params, e.g. device="cpu" for the port)."""
+    from uzkge_tpu_torch.plonk.proof_io import proof_to_bytes_be
     from uzkge_tpu_torch.shuffle.app import seeded_game
 
-    pp, cs, kzg = app.gen_shuffle_prover_params(n_cards)
+    pp, cs, kzg = app.gen_shuffle_prover_params(n_cards, **params)
     rng = random.Random(seed)
     joint, deck = seeded_game(rng, n_cards)
+    deck = [app.Ciphertext(c.e1, c.e2) for c in deck]  # the app's own card type
     refresh(pp, cs, kzg, joint)
     proof, outputs = app.prove_shuffle(rng, joint, deck, pp, kzg)
     assert app.verify_shuffle(pp.verifier_params, kzg, deck, outputs, proof)

@@ -23,7 +23,8 @@ canonical values (< p).
 import numpy as np
 import torch
 
-from uzkge_tpu.constants.bn254 import Q_MOD, R_MOD
+from ..constants.bn254 import Q_MOD, R_MOD
+from ..device import resolve
 
 L = 8  # 32-bit limbs per element
 W = 8  # int64 lanes per element in the wide form (one per 32-bit limb)
@@ -50,7 +51,7 @@ def from_jax_limbs(arr, device=None) -> torch.Tensor:
     -> (..., 8) int32 tensor of 32-bit limbs."""
     a = np.asarray(arr).astype(np.uint32)
     v = (a[..., 0::2] & MASK) | ((a[..., 1::2] & MASK) << 16)
-    return torch.from_numpy(np.ascontiguousarray(v).view(np.int32)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(v).view(np.int32)).to(resolve(device))
 
 
 def to_jax_limbs(t: torch.Tensor) -> np.ndarray:
@@ -129,7 +130,7 @@ class MontField:
         vals = [values] if scalar else values
         p, r = self.p, self.R
         arr = ints_to_limbs(v % p * r % p for v in vals)
-        out = torch.from_numpy(arr).to(device)
+        out = torch.from_numpy(arr).to(resolve(device))
         return out[0] if scalar else out
 
     def from_mont_limbs(self, t: torch.Tensor):
@@ -147,7 +148,7 @@ class MontField:
         """Packed 32-byte LE standard-form scalars -> (N, 8) Montgomery limbs
         (the conversion runs on `device`)."""
         arr = np.frombuffer(blob, dtype="<i4").reshape(-1, L).copy()
-        return self.to_mont(torch.from_numpy(arr).to(device))
+        return self.to_mont(torch.from_numpy(arr).to(resolve(device)))
 
     # ------------------------------------------------------- wide form
 
@@ -216,7 +217,7 @@ class MontField:
 
     def const_raw(self, value: int, device=None) -> torch.Tensor:
         """(8,) limbs of `value` as stored (no Montgomery conversion)."""
-        return torch.from_numpy(ints_to_limbs([value])[0]).to(device)
+        return torch.from_numpy(ints_to_limbs([value])[0]).to(resolve(device))
 
     def pow_const(self, a, e: int):
         """a^e for a python-int exponent (square and multiply)."""

@@ -2,16 +2,16 @@
 
 Counterpart of `uzkge_tpu/gen_params.py` (reference gen_params/mod.rs and
 shuffle/src/gen_params).  It reads the same embedded binaries, the
-reference's published artifacts in `uzkge_tpu/parameters/`.
+reference's published artifacts in `uzkge_tpu/parameters/`: data files,
+read by path, with nothing of that package imported.
 """
 
 import os
 from functools import lru_cache
 
-import torch
-
-from uzkge_tpu.errors import MissingSRSError, MissingVerifierParamsError
-from uzkge_tpu.utils import serialize as ser
+from .device import resolve
+from .errors import MissingSRSError, MissingVerifierParamsError
+from .utils import serialize as ser
 
 from .pcs.kzg import KZG
 from .plonk.indexer import VerifierParams
@@ -34,7 +34,7 @@ _SRS_CACHE: dict = {}
 def load_srs(size: int, device=None) -> KZG:
     """Padded SRS plus the Lagrange bases for circuit size n
     (gen_params/mod.rs:144-183), cached per (size, device)."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve(device)
     key = (size, str(dev))
     kzg = _SRS_CACHE.get(key)
     if kzg is not None:

@@ -1,13 +1,15 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled with nvcc for sm_90a into one shared library with a
-plain C interface, loaded with ctypes, at first use (never at import: the
-CPU test suite imports every module on machines without nvcc or a card).
-The library lands in `uzkge_tpu_torch/build/`, which .gitignore lists.
+The sources are compiled with nvcc for sm_90a, one nvcc process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ctypes, at first use (never at import: the CPU test
+suite imports every module on machines without nvcc or a card).  The library
+lands in `uzkge_tpu_torch/build/`, which .gitignore lists.
 
-Each C entry point enqueues one kernel on the stream it is given and returns
-`cudaGetLastError()`.  The Python wrappers (ntt/cuda_ntt.py, msm/msm.py)
-check their arguments, allocate outputs with torch.empty, pass
+Each C entry point enqueues its kernel on the stream it is given and returns
+`cudaGetLastError()`.  The Python wrappers (ff/cuda_field.py,
+ntt/cuda_ntt.py, msm/msm.py, msm/fixed_base.py) check their arguments,
+allocate outputs with torch.empty, pass
 `torch.cuda.current_stream().cuda_stream`, raise on a nonzero return, and
 add one to their entry of LAUNCHES for every kernel launched.
 """
@@ -22,17 +24,19 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("ntt.cu", "msm.cu")
-HEADERS = ("field.cuh",)
+SOURCES = ("ntt.cu", "msm.cu", "mont_mul.cu", "fixed_base.cu")
+HEADERS = ("field.cuh", "fixed_base.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 # launch counts per kernel: plain integers, reset by reset_launches()
-LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0}
+LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
+            "fp_mont_mul": 0, "fb_bases": 0, "fb_mult_chunk": 0, "fq_batch_inv": 0}
 
 _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, y, tw, pre, post, cst, out, S, IN, stream
     "ntt_pass_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -40,6 +44,17 @@ _SIGNATURES = {
     "msm_bucket_accumulate_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     # buckets, out, P, K, stream
     "msm_bucket_reduce_launch": [_P, _P, _I, _I, _P],
+    # a, b, out, N, field (0 = Fr, 1 = Fq), stream
+    "fp_mont_mul_launch": [_P, _P, _P, _L, _I, _P],
+    # x, y, ox, oy, oz, n, W, c, stream
+    "fb_bases_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # tx, ty, tz, bx, by, ox, oy, oz, fx, fy, fz, K, CH, stream
+    "fb_mult_chunk_launch": [_P] * 11 + [_L, _I, _P],
+    # the three launches of one fq_batch_inv: a, pref, prod, N, M, stream;
+    # a, out, N, stream; a, pref, pinv, out, N, M, stream
+    "fq_inv_prefix_launch": [_P, _P, _P, _L, _L, _P],
+    "fq_inv_roots_launch": [_P, _P, _L, _P],
+    "fq_inv_back_launch": [_P, _P, _P, _P, _L, _L, _P],
 }
 
 
@@ -61,24 +76,43 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into build/libuzkge_kernels.so unless it is newer
-    than every source; returns the library path."""
+    than every source; returns the library path.  One nvcc per source, all
+    running at once, then one link."""
     so = os.path.join(BUILD_DIR, "libuzkge_kernels.so")
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
     deps = srcs + [os.path.join(CSRC, h) for h in HEADERS]
     if os.path.exists(so) and os.path.getmtime(so) >= max(map(os.path.getmtime, deps)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-I", CSRC, "-o", tmp] + srcs
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
-    os.replace(tmp, so)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o") for s in SOURCES]
+    procs = []
+    for src, obj in zip(srcs, objs):
+        cmd = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-I", CSRC, "-c", "-o", obj, src]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    errors = []
+    for src, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {src} failed ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(f"nvcc {src}:\n{err}")
+    tmp = f"{so}.{tag}.tmp"
+    try:
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        res = subprocess.run([nvcc, "-shared", "-o", tmp] + objs, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return so
 
 
@@ -102,6 +136,16 @@ def launch(name: str, *args):
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
+def use_kernel(dev: torch.device, name: str) -> bool:
+    """True for a CUDA device (the wrapper launches its kernel), False for the
+    CPU (the wrapper runs the plain torch version); raises for any other."""
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {dev}")
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -111,7 +155,9 @@ def ptr(t):
 
 
 def check(t: torch.Tensor, name: str, shape, device):
-    """Raise unless `t` is a contiguous int32 tensor of `shape` on `device`."""
+    """Raise unless `t` is a contiguous int32 tensor of `shape` on `device`
+    whose data starts on a 16-byte boundary (the kernels load elements as
+    16-byte vectors)."""
     if t.dtype != torch.int32:
         raise TypeError(f"{name}: dtype {t.dtype}, want torch.int32")
     if t.device != device:
@@ -120,3 +166,5 @@ def check(t: torch.Tensor, name: str, shape, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name}: data not 16-byte aligned")

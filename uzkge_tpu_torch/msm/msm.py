@@ -19,12 +19,12 @@ points (python ints, None for the identity).
 
 import torch
 
-from uzkge_tpu.constants.bn254 import Q_MOD, R_MOD
-from uzkge_tpu.curve.bn254 import g1_add
-from uzkge_tpu.ff.field import Fq
-
 from .. import kernels
+from ..constants.bn254 import Q_MOD, R_MOD
+from ..curve.bn254 import g1_add
+from ..device import resolve
 from ..ff.field import W, fq, fr, lift, lower
+from ..ff.host_field import Fq
 
 C_BITS = 8
 N_WINDOWS = 32
@@ -39,7 +39,7 @@ class MSMBases:
     def __init__(self, points, device=None):
         assert all(p is not None for p in points), "identity base not supported"
         self.n = len(points)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve(device)
         self.x = fq.to_mont_limbs([p[0] for p in points], self.device).reshape(self.n, 8)
         self.y = fq.to_mont_limbs([p[1] for p in points], self.device).reshape(self.n, 8)
         self.points = list(points)
@@ -209,10 +209,8 @@ def msm_bucket_accumulate(bx, by, std, K: int):
     kernels.check(std, "std", (P, n, 8), dev)
     if not 1 <= K <= n:
         raise ValueError(f"msm_bucket_accumulate: K = {K} outside [1, {n}]")
-    if dev.type == "cpu":
+    if not kernels.use_kernel(dev, "msm_bucket_accumulate"):
         return msm_bucket_accumulate_plain(bx, by, std, K)
-    if dev.type != "cuda":
-        raise ValueError(f"msm_bucket_accumulate: unsupported device {dev}")
     buckets = torch.empty((P, K, N_WINDOWS, N_BUCKETS, 3, 8), dtype=torch.int32, device=dev)
     kernels.launch("msm_bucket_accumulate_launch", bx.data_ptr(), by.data_ptr(),
                    std.data_ptr(), buckets.data_ptr(), P, n, K, kernels.stream_of(std))
@@ -225,10 +223,8 @@ def msm_bucket_reduce(buckets):
     P, K = buckets.shape[:2]
     dev = buckets.device
     kernels.check(buckets, "buckets", (P, K, N_WINDOWS, N_BUCKETS, 3, 8), dev)
-    if dev.type == "cpu":
+    if not kernels.use_kernel(dev, "msm_bucket_reduce"):
         return msm_bucket_reduce_plain(buckets)
-    if dev.type != "cuda":
-        raise ValueError(f"msm_bucket_reduce: unsupported device {dev}")
     out = torch.empty((P, N_WINDOWS, 3, 8), dtype=torch.int32, device=dev)
     kernels.launch("msm_bucket_reduce_launch", buckets.data_ptr(), out.data_ptr(), P, K,
                    kernels.stream_of(buckets))

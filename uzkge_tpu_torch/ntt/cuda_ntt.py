@@ -87,10 +87,8 @@ def ntt_pass(x, tw, pre=None, post=None, const=None):
             kernels.check(lad, name, (S, IN, 8), dev)
     if const is not None:
         kernels.check(const, "const", (8,), dev)
-    if dev.type == "cpu":
+    if not kernels.use_kernel(dev, "ntt_pass"):
         return ntt_pass_plain(x, tw, pre, post, const)
-    if dev.type != "cuda":
-        raise ValueError(f"ntt_pass: unsupported device {dev}")
     if S < 2 or S > SMAX or S & (S - 1):
         raise ValueError(f"ntt_pass: S = {S} outside the kernel's [2, {SMAX}] powers of two")
     y = torch.empty_like(x)

@@ -13,10 +13,10 @@ pre / post ladders of the passes; the plain ifft's n^-1 rides as a constant.
 
 import torch
 
-from uzkge_tpu.errors import GroupNotFound
-from uzkge_tpu.ff.field import Fr
-
+from ..device import resolve
+from ..errors import GroupNotFound
 from ..ff.field import fr
+from ..ff.host_field import Fr
 from .cuda_ntt import build_plan, fft_mid
 
 
@@ -28,7 +28,7 @@ class NTTDomain:
             raise GroupNotFound(n)
         self.n = n
         self.ctx = ctx
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve(device)
         p = ctx.p
         self.omega = Fr.root_of_unity(n) if n > 1 else 1
         self.omega_inv = pow(self.omega, p - 2, p)
@@ -127,7 +127,7 @@ _DOMAINS = {}
 
 def get_domain(n: int, device=None) -> NTTDomain:
     """The cached size-n domain on `device`."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve(device)
     key = (n, str(dev))
     dom = _DOMAINS.get(key)
     if dom is None:

@@ -1,7 +1,9 @@
 """KZG polynomial commitments over BN254 with commits on torch tensors.
 
 Counterpart of `uzkge_tpu/pcs/kzg.py::KZG`, on its variable-base path:
-every commit is the Pippenger of msm/msm.py.  Scheme semantics are the
+every commit is the Pippenger of msm/msm.py.  The fixed-base table over the
+Lagrange basis (`lagrange_fb_table`) is built here too; commits do not go
+through it yet.  Scheme semantics are the
 reference's (kzg_poly_commitment.rs / pcs.rs): Lagrange-basis commits plus
 `apply_blind_factors`, coefficient-basis commits over the contiguous SRS
 prefix, the batch_prove alpha-combination and one multi-pairing check.
@@ -12,25 +14,39 @@ from typing import List, Optional
 
 import torch
 
-from uzkge_tpu import native_host as nh
-from uzkge_tpu.constants.bn254 import R_MOD
-from uzkge_tpu.curve.bn254 import G2_GEN, g1_add, g1_mul, g1_neg, g2_mul
-from uzkge_tpu.errors import DegreeError
-from uzkge_tpu.ff.field import Fr
-from uzkge_tpu.pcs.pairing import multi_pairing_is_one
-from uzkge_tpu.utils.transcript import Transcript
-
+from .. import native_host as nh
+from ..constants.bn254 import R_MOD
+from ..curve.bn254 import G2_GEN, g1_add, g1_mul, g1_neg, g2_mul
+from ..device import resolve
+from ..errors import DegreeError
 from ..ff.field import fr
+from ..ff.host_field import Fr
+from ..msm.fixed_base import FixedBaseTable
 from ..msm.msm import MSMBases, msm
 from ..ntt.ntt import get_domain
+from ..utils.transcript import Transcript
+from .pairing import multi_pairing_is_one
+
+
+def _fb_window(n: int) -> int:
+    """Window width c of the fixed-base table over n bases, the JAX package's
+    rule (uzkge_tpu/pcs/kzg.py::_fb_window), kept for parity of the window:
+    the larger of 8 and 4 whose table, 2^(c-1) * ceil(254/c) * n rows of
+    64 B, fits 4.5 GB; c = 8 through n = 16384 (4.29 GB).  The budget was
+    sized for a 16 GB TPU; an 80 GB card would hold a wider window."""
+    for c in (8, 4):
+        if (1 << (c - 1)) * ((254 + c - 1) // c) * n * 64 <= 4.5e9:
+            return c
+    return 4
 
 
 class KZG:
-    """SRS container + commitment operations; device structures on `device`."""
+    """SRS container + commitment operations; device structures on `device`
+    (the card unless the caller passes another)."""
 
     def __init__(self, g1_powers: List, g2_powers: List, lagrange_bases: Optional[List] = None,
                  device=None):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve(device)
         self.g1_powers = g1_powers  # affine points; None marks SRS padding gaps
         self.g2_powers = g2_powers  # [G2, s*G2]
         contig = 0
@@ -69,10 +85,22 @@ class KZG:
         self._lagrange_n = len(lagrange_bases)
         self._lagrange = True
         self._lagrange_vb = None  # MSMBases, built on the first commit
+        self._lagrange_fb = None  # FixedBaseTable, built on the first call
 
     @property
     def lagrange_n(self):
         return self._lagrange_n if self._lagrange is not None else 0
+
+    def lagrange_fb_table(self) -> FixedBaseTable:
+        """The fixed-base table over the Lagrange basis on this KZG's device,
+        with the window of _fb_window; built on the first call, then cached
+        (kzg_poly_commitment.rs:290: one table serves every commit)."""
+        if self._lagrange is None:
+            raise ValueError("this KZG has no Lagrange bases")
+        if self._lagrange_fb is None:
+            self._lagrange_fb = FixedBaseTable(self._lagrange_points,
+                                               c=_fb_window(self._lagrange_n), device=self.device)
+        return self._lagrange_fb
 
     def _coef_msm_bases(self):
         if self._coef_bases is None:

@@ -13,12 +13,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from uzkge_tpu.constants.bn254 import R_MOD
-from uzkge_tpu.plonk.cs import N_SELECTORS, N_WIRES_PER_GATE, TurboCS
-from uzkge_tpu.utils.chacha import choose_ks
-
+from ..constants.bn254 import R_MOD
+from ..device import resolve
 from ..ff.field import fr, from_jax_limbs
 from ..ntt.ntt import get_domain
+from ..utils.chacha import choose_ks
+from .cs import N_SELECTORS, N_WIRES_PER_GATE, TurboCS
 
 
 @dataclass
@@ -238,6 +238,7 @@ def verifier_params_from_jax(vk) -> VerifierParams:
 def prover_params_from_jax(pp, device=None) -> ProverParams:
     """A JAX-package ProverParams -> this package's, its arrays carried over
     through numpy onto `device` (16-bit limbs regrouped as 32-bit limbs)."""
+    dev = resolve(device)
     kw = {}
     for f in fields(ProverParams):
         v = getattr(pp, f.name)
@@ -248,6 +249,6 @@ def prover_params_from_jax(pp, device=None) -> ProverParams:
         elif f.name == "s_evals_host":
             v = [list(r) for r in v]
         elif v is not None and not isinstance(v, (int, bool, bytes)):
-            v = from_jax_limbs(np.asarray(v), device)
+            v = from_jax_limbs(np.asarray(v), dev)
         kw[f.name] = v
     return ProverParams(**kw)

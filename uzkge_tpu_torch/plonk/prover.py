@@ -8,7 +8,7 @@ bytes:
     Lagrange-basis commits through one batched MSM per round, blind factors
     on the host;
   * the z grand product, the transcript and the openings' host arithmetic
-    run in native host math (uzkge_tpu/native_host.py);
+    run in native host math (native_host.py, csrc/hostmath.c);
   * the quotient numerator is evaluated over the 8n coset by the 18-term
     expression of `_build_t_kernel` (helpers.rs:284-669), here in torch ops
     on the wide form of ff/field.py, then coset-iFFT'd back.
@@ -21,15 +21,14 @@ from typing import List
 
 import torch
 
-from uzkge_tpu import native_host as nh
-from uzkge_tpu.constants.bn254 import R_MOD as P
-from uzkge_tpu.plonk.cs import N_WIRES_PER_GATE, TurboCS
-from uzkge_tpu.plonk.helpers import alpha_powers, first_lagrange_eval, r_scalars
-from uzkge_tpu.utils.transcript import Transcript
-
+from .. import native_host as nh
+from ..constants.bn254 import R_MOD as P
 from ..ff.field import fr, lift, lower
 from ..ntt.ntt import get_domain
 from ..utils.stagetimer import stage
+from ..utils.transcript import Transcript
+from .cs import N_WIRES_PER_GATE, TurboCS
+from .helpers import alpha_powers, first_lagrange_eval, r_scalars
 from .indexer import ProverParams
 
 

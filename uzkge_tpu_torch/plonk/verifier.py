@@ -8,13 +8,12 @@ pulls in no JAX.
 
 from typing import List
 
-from uzkge_tpu.constants.bn254 import R_MOD as P
-from uzkge_tpu.curve.bn254 import g1_add, g1_mul
-from uzkge_tpu.ff.field import Fr
-from uzkge_tpu.plonk.cs import N_WIRES_PER_GATE
-from uzkge_tpu.plonk.helpers import eval_pi, first_lagrange_eval, r_eval_zeta, r_scalars
-from uzkge_tpu.utils.transcript import Transcript
-
+from ..constants.bn254 import R_MOD as P
+from ..curve.bn254 import g1_add, g1_mul
+from ..ff.host_field import Fr
+from ..utils.transcript import Transcript
+from .cs import N_WIRES_PER_GATE
+from .helpers import eval_pi, first_lagrange_eval, r_eval_zeta, r_scalars
 from .prover import transcript_init_plonk
 
 

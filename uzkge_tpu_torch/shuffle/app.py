@@ -2,28 +2,27 @@
 
 Counterpart of the proving half of `uzkge_tpu/shuffle/app.py` (reference
 shuffle/src/{build_cs.rs, gen_params}).  `build_cs` is a copy of the host
-circuit builder there (that module imports the JAX prover); everything it
-calls is JAX-free host code of `uzkge_tpu`.
+circuit builder there, over this package's own copies of the circuit and
+card primitives (plonk/cs.py, plonk/gadgets.py, shuffle/primitives.py).
 """
 
 import random as _random
 from typing import List, Tuple
 
-from uzkge_tpu.curve import babyjubjub as bjj
-from uzkge_tpu.plonk import gadgets as _gadgets  # noqa: F401  (attaches gadget methods)
-from uzkge_tpu.plonk.cs import TurboCS
-from uzkge_tpu.shuffle.primitives import (
+from ..curve import babyjubjub as bjj
+from ..plonk import gadgets as _gadgets  # noqa: F401  (attaches gadget methods)
+from ..plonk.cs import TurboCS
+from ..plonk.indexer import ProverParams, indexer
+from ..plonk.prover import prover
+from ..plonk.verifier import verifier
+from ..utils.stagetimer import stage
+from ..utils.transcript import Transcript
+from .primitives import (
     Ciphertext,
     Permutation,
     eval_remark_with_trace,
     sample_random_scalar_bits,
 )
-from uzkge_tpu.utils.transcript import Transcript
-
-from ..plonk.indexer import ProverParams, indexer
-from ..plonk.prover import prover
-from ..plonk.verifier import verifier
-from ..utils.stagetimer import stage
 
 PLONK_PROOF_TRANSCRIPT = b"Plonk shuffle Proof"
 
