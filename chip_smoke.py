@@ -47,8 +47,14 @@ multiplies over the card's multiply rate, 64 per SM per clock (the CUDA C
 Programming Guide's throughput for compute capability 9.0) at the SMs and
 the maximum SM clock the card reports.  A Montgomery product (field.cuh
 fp_mul, 8 x 32-bit limbs) is 264 multiplies: 64 limb products a_j * b_i and
-64 products m * p_j, each a low and a high half, plus the 8 digits m; a
-mixed addition is 13 products, a projective one 14.
+64 products m * p_j, each a low and a high half, plus the 8 digits m.  The
+group operations count the products of the complete formulas of Renes,
+Costello and Batina for a = 0 (RCB): a mixed addition (Alg. 8) 11, a
+projective addition (Alg. 7) 12, a doubling (Alg. 9) 8.  Their products by
+b3 = 3 * 3 = 9 cost no multiply (three doublings and an addition), so they
+are not counted, though field.cuh's g1_madd and g1_padd do them as
+products, and the kernels double with g1_padd.  A batch inversion of N
+elements needs 3 (N - 1) products and one Fermat inversion.
 """
 
 import hashlib
@@ -67,7 +73,7 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 IMUL_PER_SM_CLOCK = 64  # 32-bit integer multiplies, compute capability 9.0
 MULS_PER_PRODUCT = 264  # 32-bit multiplies in one Montgomery product
-MADD_PRODUCTS, PADD_PRODUCTS = 13, 14
+MADD_PRODUCTS, PADD_PRODUCTS, DBL_PRODUCTS = 11, 12, 8  # RCB Alg. 8, 7, 9
 
 
 def log(*args):
@@ -267,9 +273,11 @@ def check_msm(dev, rng, rate):
     nonzero = int((M._digits(std) != 0).sum())  # one mixed addition per nonzero digit
     acc_bound = bound(2 * n * 32 + P * n * 32 + buckets, nonzero * MADD_PRODUCTS, rate)
     # per (p, w): the fold of 256 buckets over K chunks, 16 segments of 15 buckets
-    # (two additions each) plus 15 segment heads, and the 51-addition combine
-    adds = P * M.N_WINDOWS * (M.N_BUCKETS * (K - 1) + 16 * 30 + 15 + 51)
-    red_bound = bound(buckets + P * M.N_WINDOWS * 96, adds * PADD_PRODUCTS, rate)
+    # (two additions each) plus 15 segment heads, and the combine of 47
+    # additions and 4 doublings
+    adds = P * M.N_WINDOWS * (M.N_BUCKETS * (K - 1) + 16 * 30 + 15 + 47)
+    red_bound = bound(buckets + P * M.N_WINDOWS * 96,
+                      adds * PADD_PRODUCTS + P * M.N_WINDOWS * 4 * DBL_PRODUCTS, rate)
     return ({"max_abs_err": max(err_acc, e, e_acc), "ms": acc_ms, "plain_ms": acc_plain_ms,
              "shape": shape, **acc_bound},
             {"max_abs_err": max(err_red, e, e_red), "ms": red_ms, "plain_ms": red_plain_ms,
@@ -302,13 +310,10 @@ def fermat_products() -> int:
 
 
 def batch_inv_products(N: int) -> int:
-    """Montgomery products of fq_batch_inv on N elements: per tree level one
-    forward and two backward products per element that is not a group's
-    first, and a Fermat inversion per root."""
-    from uzkge_tpu_torch.msm.fixed_base import batch_inv_levels
-
-    levels, roots = batch_inv_levels(N)
-    return sum(3 * (n - m) for n, m in levels) + roots * fermat_products()
+    """Montgomery products a batch inversion of N elements needs: one
+    forward and two backward products per element but the first, and one
+    Fermat inversion (fq_batch_inv itself inverts up to INV_ROOTS roots)."""
+    return 3 * (N - 1) + fermat_products()
 
 
 def compare(errs, name, shape, kernel, plain, reps=3):
@@ -446,6 +451,8 @@ def fixed_base_path(dev, rng):
     if missing:
         raise AssertionError(f"the table build launched no {missing}")
     log(f"fixed-base table: {check_table_rows(tbl, rng)} sampled rows == host bn254 multiples")
+    profile_table_build(tbl, dev)
+    torch.cuda.empty_cache()
     return tbl, launches
 
 
@@ -464,9 +471,9 @@ def check_fixed_base_full(dev, tbl, rate, errs):
     res = {}
     shape = f"n={n} W={W} c={c}"
     B, ms, pms = compare(errs, "fb_bases", shape, lambda: fb.fb_bases(x, y, W, c),
-                         lambda: fb.fb_bases_plain(x, y, W, c), reps=1)
+                         lambda: fb.fb_bases_plain(x, y, W, c))
     res["fb_bases"] = {"ms": ms, "plain_ms": pms, "shape": shape,
-                       **bound(64 * n + 96 * K, PADD_PRODUCTS * n * (W - 1) * c, rate)}
+                       **bound(64 * n + 96 * K, DBL_PRODUCTS * n * (W - 1) * c, rate)}
     zinv = fb.fq_batch_inv(B[2])
     bax, bay = fp_mont_mul(fq, B[0], zinv), fp_mont_mul(fq, B[1], zinv)
     one = fq.const(1, dev).expand(K, 8).contiguous()
@@ -494,47 +501,86 @@ def check_fixed_base_full(dev, tbl, rate, errs):
     return res
 
 
-def profile_prove(seed, pp, kzg, joint, deck, latency):
-    """One more proof under torch.profiler.  Device busy time is the union of
-    the intervals of the device-side events alone (kernels, memcpys,
-    memsets), so an operator and the kernel it launched count once.  The
-    idle share is taken against the profiled proof's wall time (profiler
-    on); busy time over the unprofiled latency is printed beside it."""
+def device_profile(fn):
+    """fn() once under torch.profiler.  Returns the wall seconds of fn
+    (profiler on), the device-side events (kernels, memcpys, memsets) and the
+    busy seconds, the union of their intervals, so that an operator and the
+    kernel it launched count once; None for the events and busy time when
+    the profiler recorded no device event.  A one-element kernel and a pause
+    come first, outside the wall (its microseconds count as busy): in one
+    run on the card, a profile taken after an earlier one in the same
+    process lost its first few device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from uzkge_tpu_torch.shuffle import app
-
-    rng = random.Random(seed + 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        app.prove_shuffle(rng, joint, deck, pp, kzg)
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
-            continue
-        lo, hi = ev.time_range.start, ev.time_range.end
-        spans.append((lo, hi))
-        us, count = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (us + hi - lo, count + 1)
-    if not spans:
-        log("profiled prove52: the profiler recorded no device events (busy time not measured)")
-        return
+        time.sleep(0.1)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [(ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA
+              and not getattr(ev, "is_user_annotation", False)]
+    if not events:
+        return wall, None, None
     busy_us, end = 0.0, float("-inf")
-    for lo, hi in sorted(spans):
+    for lo, hi, _ in sorted(events):
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
-    busy_s = busy_us / 1e6
-    log(f"profiled prove52: wall {wall:.3f} s (profiler on), {len(spans)} device events, "
+    return wall, events, busy_us / 1e6
+
+
+def log_device_time(events, top: int):
+    """The `top` names of device events by summed time."""
+    by_name = {}
+    for lo, hi, name in events:
+        us, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + hi - lo, count + 1)
+    rows = sorted(((us, c, name) for name, (us, c) in by_name.items()), reverse=True)
+    for us, count, name in rows[:top]:
+        log(f"  device {us / 1e3:10.3f} ms  x{count:<6d} {name[:90]}")
+
+
+def profile_prove(seed, pp, kzg, joint, deck, latency):
+    """One more proof under torch.profiler.  The idle share is taken against
+    the profiled proof's wall time (profiler on); busy time over the
+    unprofiled latency is printed beside it."""
+    from uzkge_tpu_torch.shuffle import app
+
+    rng = random.Random(seed + 1)
+    wall, events, busy_s = device_profile(lambda: app.prove_shuffle(rng, joint, deck, pp, kzg))
+    if events is None:
+        log("profiled prove52: the profiler recorded no device events (busy time not measured)")
+        return
+    log(f"profiled prove52: wall {wall:.3f} s (profiler on), {len(events)} device events, "
         f"device busy {busy_s:.4f} s, idle share of the profiled wall {1 - busy_s / wall:.4f}; "
         f"busy / unprofiled latency {busy_s / latency:.4f}")
-    rows = sorted(((us, c, name) for name, (us, c) in by_name.items()), reverse=True)
-    for us, count, name in rows[:15]:
-        log(f"  device {us / 1e3:10.3f} ms  x{count:<6d} {name[:90]}")
+    log_device_time(events, 15)
+
+
+def profile_table_build(tbl, dev):
+    """A second build of the same table under torch.profiler: the device
+    time of the four kernels apart from the rest (the strided copies of each
+    chunk into the table, fills, host-to-device copies) and the host's
+    share of the wall."""
+    from uzkge_tpu_torch.msm.fixed_base import FixedBaseTable
+
+    wall, events, busy_s = device_profile(
+        lambda: FixedBaseTable(tbl.points, c=tbl.c, bits=tbl.bits, device=dev))
+    if events is None:
+        log("profiled table build: the profiler recorded no device events (not measured)")
+        return
+    ours = ("fb_bases", "fb_mult_chunk", "fq_inv_", "mont_mul")
+    kern_us = sum(hi - lo for lo, hi, name in events if any(k in name for k in ours))
+    other_us = sum(hi - lo for lo, hi, name in events) - kern_us
+    log(f"profiled table build: wall {wall:.4f} s (profiler on), {len(events)} device events, "
+        f"device busy {busy_s:.4f} s: the four kernels {kern_us / 1e6:.4f} s, other device "
+        f"events {other_us / 1e6:.4f} s; not busy {wall - busy_s:.4f} s")
+    log_device_time(events, 10)
 
 
 def main_path(dev, golden):

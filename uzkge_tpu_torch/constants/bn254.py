@@ -3,7 +3,7 @@
 These are standard, publicly documented curve parameters (EIP-196/197 and the
 Baby Jubjub specification), matching the reference implementation's arkworks
 crates (`ark-bn254-zypher`, `ark-ed-on-bn254-zypher`; see
-/root/reference/Cargo.toml:33-34).
+the reference's Cargo.toml:33-34).
 
 Everything transcript-visible in the proving system depends on these values
 being exact.
@@ -48,9 +48,6 @@ G2_GENERATOR_Y = (
     4082367875863433681332203403145435568316851327593401208105741076214120093531,
 )
 
-# E: y^2 = x^3 + 3 over Fq
-G1_B = 3
-
 # ---------------------------------------------------------------------------
 # BabyJubjub (twisted Edwards curve over Fq of BN254's Fr... careful:
 # BabyJubjub's base field is BN254's *scalar* field Fr, so its coordinates are
@@ -69,7 +66,6 @@ EDWARDS_D = (168696 * pow(168700, R_MOD - 2, R_MOD)) % R_MOD
 
 # Prime order of the BabyJubjub subgroup (cofactor 8)
 BJJ_ORDER = 2736030358979909402780800718157159386076813972158567259200215660948447373041
-BJJ_COFACTOR = 8
 
 # ark-ed-on-bn254 generator of the prime-order subgroup.
 # (Validated against the reference's preprocessed table in tests.)

@@ -1,11 +1,11 @@
 /* Native host-side BN254 Fr arithmetic for the orchestration layer.
  *
- * The TPU owns the O(n log n) / O(n * windows) kernels (NTT, MSM, quotient);
+ * The card owns the O(n log n) / O(n * windows) kernels (NTT, MSM, quotient);
  * this library owns the host-resident sequential/hot loops that the reference
  * implements in native Rust (uzkge/src/plonk/helpers.rs): the z permutation
- * grand product, linearization-polynomial combination, Horner evaluations,
- * batch inversion, and the opening division.  Called from python via ctypes
- * (see uzkge_tpu/native_host.py); scalars cross the boundary as 32-byte
+ * grand product, linearization-polynomial combination, Horner evaluations
+ * and the opening division.  Called from python via ctypes
+ * (see native_host.py); scalars cross the boundary as 32-byte
  * little-endian blobs.
  *
  * Arithmetic: 4x64-bit limbs, CIOS Montgomery multiplication with unsigned
@@ -176,35 +176,6 @@ void horner_eval(const unsigned char *coefs, u64 n, const unsigned char *x,
     }
     fr_from_mont(&acc, &acc);
     store(out, &acc);
-}
-
-/* out[i] = 1/in[i]; all inputs must be nonzero */
-void batch_inv(const unsigned char *in, u64 n, unsigned char *out) {
-    if (n == 0) return;
-    fr *pref = (fr *)out; /* reuse out as scratch for prefix products */
-    fr cur, prev;
-    load(&cur, in);
-    fr_to_mont(&cur, &cur);
-    pref[0] = cur;
-    for (u64 i = 1; i < n; i++) {
-        load(&cur, in + i * 32);
-        fr_to_mont(&cur, &cur);
-        fr_mul(&pref[i], &pref[i - 1], &cur);
-    }
-    fr inv;
-    fr_inv(&inv, &pref[n - 1]);
-    for (u64 i = n - 1; i > 0; i--) {
-        fr tmp;
-        fr_mul(&tmp, &inv, &pref[i - 1]); /* 1/in[i] in mont */
-        load(&cur, in + i * 32);
-        fr_to_mont(&cur, &cur);
-        fr_mul(&inv, &inv, &cur); /* running inverse of prefix */
-        fr_from_mont(&tmp, &tmp);
-        store(out + i * 32, &tmp);
-        /* careful: out aliases pref; index i already consumed */
-    }
-    fr_from_mont(&prev, &inv);
-    store(out, &prev);
 }
 
 /* z grand product (helpers.rs:160-220):
@@ -404,39 +375,4 @@ void alpha_combine(const unsigned char *rows_buf, const u64 *row_lens,
         store(out + i * 32, &o);
     }
     __builtin_free(acc);
-}
-
-/* Radix-2 DIT NTT over Montgomery-form scalars: the single-core CPU
- * baseline for the bench's butterflies/s comparison (stand-in for
- * ark-poly's Radix2EvaluationDomain::fft, field_polynomial.rs:583-607 —
- * same 4x64 Montgomery arithmetic, same n/2*log2(n) butterfly count).
- * buf: n Montgomery scalars (LE blobs); tw: n/2 Montgomery twiddles w^j. */
-void ntt_radix2_mont(unsigned char *buf, u64 n, const unsigned char *tw) {
-    fr *a = (fr *)__builtin_malloc(n * sizeof(fr));
-    fr *w = (fr *)__builtin_malloc((n / 2) * sizeof(fr));
-    for (u64 i = 0; i < n; i++) load(&a[i], buf + i * 32);
-    for (u64 i = 0; i < n / 2; i++) load(&w[i], tw + i * 32);
-    /* bit-reversal permutation */
-    u64 lg = 0;
-    while ((1ULL << lg) < n) lg++;
-    for (u64 i = 0; i < n; i++) {
-        u64 r = 0;
-        for (u64 b = 0; b < lg; b++) r |= ((i >> b) & 1) << (lg - 1 - b);
-        if (r > i) { fr t = a[i]; a[i] = a[r]; a[r] = t; }
-    }
-    for (u64 len = 1; len < n; len <<= 1) {
-        u64 step = n / (2 * len); /* twiddle stride for this stage */
-        for (u64 start = 0; start < n; start += 2 * len) {
-            for (u64 j = 0; j < len; j++) {
-                fr t;
-                fr_mul(&t, &a[start + len + j], &w[j * step]);
-                fr u = a[start + j];
-                fr_add(&a[start + j], &u, &t);
-                fr_sub(&a[start + len + j], &u, &t);
-            }
-        }
-    }
-    for (u64 i = 0; i < n; i++) store(buf + i * 32, &a[i]);
-    __builtin_free(a);
-    __builtin_free(w);
 }

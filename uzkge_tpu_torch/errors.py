@@ -1,5 +1,5 @@
 """Structured error types mirroring the reference's `UzkgeError` enum
-(`/root/reference/uzkge/src/errors.rs:5-45`).
+(the reference's `uzkge/src/errors.rs:5-45`).
 
 The reference propagates a single error enum through `Result`; here the
 equivalent is an exception hierarchy rooted at `UzkgeError` so callers can

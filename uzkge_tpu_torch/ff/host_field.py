@@ -6,7 +6,7 @@ lives in `uzkge_tpu.ff.jax_field` (limb-vectorized Montgomery kernels) and is
 tested against this layer.
 
 Reference semantics: ark-ff `Fp256<MontBackend<...>>` as used throughout
-/root/reference/uzkge/src (values compared in the standard domain).
+the reference's uzkge/src (values compared in the standard domain).
 """
 
 from ..constants.bn254 import R_MOD, Q_MOD, FR_TWO_ADICITY, FR_TWO_ADIC_ROOT_OF_UNITY
@@ -24,9 +24,6 @@ class PrimeField:
 
     def add(self, a, b):
         return (a + b) % self.p
-
-    def sub(self, a, b):
-        return (a - b) % self.p
 
     def mul(self, a, b):
         return (a * b) % self.p
@@ -64,12 +61,6 @@ class PrimeField:
         log_n = n.bit_length() - 1
         assert log_n <= self.two_adicity, f"no 2^{log_n} root of unity"
         return pow(self.two_adic_root, 1 << (self.two_adicity - log_n), self.p)
-
-    def from_be_bytes_mod_order(self, b: bytes) -> int:
-        return int.from_bytes(b, "big") % self.p
-
-    def from_le_bytes_mod_order(self, b: bytes) -> int:
-        return int.from_bytes(b, "little") % self.p
 
     def to_bytes_be(self, a: int) -> bytes:
         return int(a % self.p).to_bytes(32, "big")

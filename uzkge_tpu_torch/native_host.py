@@ -1,8 +1,8 @@
 """ctypes wrapper over the native host-math library (csrc/hostmath.c).
 
-Builds the shared object on demand with the system C compiler (no pip
-dependencies) and exposes the prover's host-side hot loops; callers fall back
-to pure python when the toolchain is unavailable (`HAVE_NATIVE`).
+Builds the shared object when imported, with the system C compiler (no pip
+dependencies), so that no proof pays for the build, and exposes the prover's
+host-side hot loops; a failed build raises.
 
 All scalars cross the boundary as 32-byte little-endian standard-form blobs.
 """
@@ -12,54 +12,38 @@ import os
 import subprocess
 import tempfile
 
-from .constants.bn254 import R_MOD
-
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "csrc", "hostmath.c")
 _SO = os.path.join(_DIR, "build", "hostmath.so")
-
-_lib = None
 
 
 def _build():
     os.makedirs(os.path.dirname(_SO), exist_ok=True)
     if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        subprocess.run(
-            ["cc", "-O2", "-shared", "-fPIC", "-o", _SO, _SRC],
-            check=True,
-            capture_output=True,
-        )
+        # build beside the target and rename, so that concurrent processes
+        # never load a half-written object
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(_SO))
+        os.close(fd)
+        subprocess.run(["cc", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC],
+                       check=True, capture_output=True)
+        os.replace(tmp, _SO)
     lib = ctypes.CDLL(_SO)
     c = ctypes.c_char_p
     u64 = ctypes.c_uint64
     pu64 = ctypes.POINTER(ctypes.c_uint64)
     lib.horner_eval.argtypes = [c, u64, c, c]
-    lib.batch_inv.argtypes = [c, u64, c]
     lib.z_poly.argtypes = [c, pu64, c, c, c, c, u64, c]
     lib.lincomb.argtypes = [c, pu64, c, u64, u64, c]
     lib.synthetic_div.argtypes = [c, u64, c, c, c]
     lib.alpha_combine.argtypes = [c, pu64, u64, c, c, u64, c, c]
-    lib.ntt_radix2_mont.argtypes = [c, u64, c]
     return lib
 
 
-try:
-    _lib = _build()
-    HAVE_NATIVE = True
-except Exception:  # toolchain unavailable — callers use python fallbacks
-    HAVE_NATIVE = False
+_lib = _build()
 
 
 def _pack(vals):
     return b"".join(int(v).to_bytes(32, "little") for v in vals)
-
-
-def _unpack(buf):
-    return [int.from_bytes(buf[i : i + 32], "little") for i in range(0, len(buf), 32)]
-
-
-def horner_eval(coefs, x: int) -> int:
-    return horner_eval_bytes(_pack(coefs), x)
 
 
 def horner_eval_bytes(coefs_blob: bytes, x: int) -> int:
@@ -68,31 +52,8 @@ def horner_eval_bytes(coefs_blob: bytes, x: int) -> int:
     return int.from_bytes(out.raw, "little")
 
 
-def batch_inv(vals):
-    buf = _pack(vals)
-    out = ctypes.create_string_buffer(32 * len(vals))
-    _lib.batch_inv(buf, len(vals), out)
-    return _unpack(out.raw)
-
-
-def z_poly(extended_witness, perm, group, k, beta: int, gamma: int, n: int):
-    wbuf = _pack(extended_witness)
-    pbuf = (ctypes.c_uint64 * len(perm))(*perm)
-    gbuf = _pack(group)
-    kbuf = _pack(k)
-    out = ctypes.create_string_buffer(32 * n)
-    _lib.z_poly(wbuf, pbuf, gbuf, kbuf, _pack([beta]), _pack([gamma]), n, out)
-    return _unpack(out.raw)
-
-
-def lincomb(rows, scalars, out_len: int):
-    """sum_i scalars[i] * rows[i] as a coefficient vector of out_len."""
-    return _unpack(
-        lincomb_bytes([_pack(r) for r in rows], scalars, out_len)
-    )
-
-
 def lincomb_bytes(row_blobs, scalars, out_len: int) -> bytes:
+    """sum_i scalars[i] * rows[i] as a coefficient blob of out_len."""
     rows_buf = b"".join(row_blobs)
     lens = (ctypes.c_uint64 * len(row_blobs))(*[len(r) // 32 for r in row_blobs])
     out = ctypes.create_string_buffer(32 * out_len)
@@ -100,31 +61,20 @@ def lincomb_bytes(row_blobs, scalars, out_len: int) -> bytes:
     return out.raw
 
 
-def synthetic_div(coefs, z: int):
-    """Returns (quotient coeffs, remainder) of coefs / (X - z)."""
-    buf = _pack(coefs)
-    out = ctypes.create_string_buffer(32 * (len(coefs) - 1))
-    rem = ctypes.create_string_buffer(32)
-    _lib.synthetic_div(buf, len(coefs), _pack([z]), out, rem)
-    return _unpack(out.raw), int.from_bytes(rem.raw, "little")
-
-
-def alpha_combine(rows, alpha: int, point: int, out_len: int):
-    """h = sum alpha^i (p_i - p_i(point)); returns (h coeffs, evals)."""
-    h, ev = alpha_combine_bytes([_pack(r) for r in rows], alpha, point, out_len)
-    return _unpack(h), _unpack(ev)
-
-
 def alpha_combine_bytes(row_blobs, alpha: int, point: int, out_len: int):
+    """h = sum alpha^i (p_i - p_i(point)); returns (h coefficient blob,
+    evaluation blob)."""
     rows_buf = b"".join(row_blobs)
     lens = (ctypes.c_uint64 * len(row_blobs))(*[len(r) // 32 for r in row_blobs])
     out = ctypes.create_string_buffer(32 * out_len)
     evals = ctypes.create_string_buffer(32 * len(row_blobs))
-    _lib.alpha_combine(rows_buf, lens, len(row_blobs), _pack([alpha]), _pack([point]), out_len, out, evals)
+    _lib.alpha_combine(rows_buf, lens, len(row_blobs), _pack([alpha]), _pack([point]), out_len,
+                       out, evals)
     return out.raw, evals.raw
 
 
 def synthetic_div_bytes(coefs_blob: bytes, z: int):
+    """Returns (quotient coefficient blob, remainder) of coefs / (X - z)."""
     n = len(coefs_blob) // 32
     out = ctypes.create_string_buffer(32 * (n - 1))
     rem = ctypes.create_string_buffer(32)
@@ -137,117 +87,3 @@ def z_poly_bytes(witness_blob: bytes, perm, group_blob: bytes, k, beta: int, gam
     out = ctypes.create_string_buffer(32 * n)
     _lib.z_poly(witness_blob, pbuf, group_blob, _pack(k), _pack([beta]), _pack([gamma]), n, out)
     return out.raw
-
-
-# ---------------------------------------------------------------------------
-# Pure-python fallbacks (same bytes API) used when no C toolchain is present.
-# ---------------------------------------------------------------------------
-
-if not HAVE_NATIVE:
-
-    def horner_eval_bytes(coefs_blob: bytes, x: int) -> int:  # noqa: F811
-        acc = 0
-        for i in range(len(coefs_blob) - 32, -32, -32):
-            acc = (acc * x + int.from_bytes(coefs_blob[i : i + 32], "little")) % R_MOD
-        return acc
-
-    def batch_inv(vals):  # noqa: F811
-        from .ff.host_field import Fr
-
-        return Fr.batch_inv(vals)
-
-    def lincomb_bytes(row_blobs, scalars, out_len: int) -> bytes:  # noqa: F811
-        acc = [0] * out_len
-        for blob, s in zip(row_blobs, scalars):
-            if s % R_MOD == 0:
-                continue
-            for j in range(len(blob) // 32):
-                c = int.from_bytes(blob[j * 32 : (j + 1) * 32], "little")
-                if c:
-                    acc[j] = (acc[j] + s * c) % R_MOD
-        return _pack(acc)
-
-    def alpha_combine_bytes(row_blobs, alpha: int, point: int, out_len: int):  # noqa: F811
-        acc = [0] * out_len
-        evals = []
-        mult = 1
-        for blob in row_blobs:
-            coefs = _unpack(blob)
-            ev = 0
-            for c in reversed(coefs):
-                ev = (ev * point + c) % R_MOD
-            evals.append(ev)
-            for j, c in enumerate(coefs):
-                acc[j] = (acc[j] + mult * c) % R_MOD
-            acc[0] = (acc[0] - mult * ev) % R_MOD
-            mult = mult * alpha % R_MOD
-        return _pack(acc), _pack(evals)
-
-    def synthetic_div_bytes(coefs_blob: bytes, z: int):  # noqa: F811
-        coefs = _unpack(coefs_blob)
-        n = len(coefs)
-        q = [0] * (n - 1)
-        acc = 0
-        for i in range(n - 1, 0, -1):
-            acc = (coefs[i] + z * acc) % R_MOD
-            q[i - 1] = acc
-        rem = (coefs[0] + z * acc) % R_MOD
-        return _pack(q), rem
-
-    def z_poly_bytes(witness_blob, perm, group_blob, k, beta, gamma, n):  # noqa: F811
-        w = _unpack(witness_blob)
-        group = _unpack(group_blob)
-        from .ff.host_field import Fr
-
-        nums, dens = [], []
-        for i in range(n - 1):
-            num = den = 1
-            for j in range(5):
-                f = w[j * n + i]
-                num = num * ((f + gamma + beta * (k[j] * group[i] % R_MOD)) % R_MOD) % R_MOD
-                pv = perm[j * n + i]
-                p_x = k[pv // n] * group[pv % n] % R_MOD
-                den = den * ((f + gamma + beta * p_x) % R_MOD) % R_MOD
-            nums.append(num)
-            dens.append(den)
-        dinv = Fr.batch_inv(dens) if dens else []
-        z = [1]
-        prev = 1
-        for x, y in zip(nums, dinv):
-            prev = prev * (x * y % R_MOD) % R_MOD
-            z.append(prev)
-        return _pack(z)
-
-
-def ntt_radix2_mont_bench(n: int, iters: int = 3):
-    """Single-core CPU radix-2 NTT timing (the bench's CPU baseline for
-    butterflies/s; see csrc/hostmath.c ntt_radix2_mont).  Returns
-    (best_seconds, butterflies) for one size-n transform."""
-    import math
-    import random
-    import time
-
-    from .constants.bn254 import R_MOD
-    from .ff.host_field import Fr
-
-    if not HAVE_NATIVE:
-        raise RuntimeError("native hostmath unavailable")
-    rng = random.Random(1)
-    R = 1 << 256
-    buf = ctypes.create_string_buffer(
-        b"".join((rng.randrange(R_MOD) * R % R_MOD).to_bytes(32, "little") for _ in range(n))
-    )
-    w = Fr.root_of_unity(n)
-    tws = []
-    cur = 1
-    for _ in range(n // 2):
-        tws.append(cur * R % R_MOD)
-        cur = cur * w % R_MOD
-    twb = ctypes.create_string_buffer(b"".join(t.to_bytes(32, "little") for t in tws))
-    best = None
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        _lib.ntt_radix2_mont(buf, n, twb)
-        dt = time.perf_counter() - t0
-        best = dt if best is None or dt < best else best
-    return best, (n // 2) * int(math.log2(n))

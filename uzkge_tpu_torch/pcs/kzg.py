@@ -149,7 +149,7 @@ class KZG:
 
     def _prepare_open(self, transcript: Transcript, poly_blobs, point: int,
                       max_degree: int, use_lagrange: bool = True):
-        """Host phase of batch_prove: transcript interaction and quotient
+        """Host phase of one opening: transcript interaction and quotient
         division.  Returns ("lagrange", head_bytes, blinds, max_pow2) or
         ("coefs", coef_list)."""
         self._transcript_append_params(transcript, max_degree, point)
@@ -203,16 +203,11 @@ class KZG:
                 out[i] = self.commit_coefs(p[1])
         return out
 
-    def batch_prove(self, transcript: Transcript, poly_blobs, point: int,
-                    max_degree: int, use_lagrange: bool = True):
-        """Open several polynomials at one point (pcs.rs:107-168).
-        `poly_blobs`: packed 32-byte LE coefficient blobs."""
-        prep = self._prepare_open(transcript, poly_blobs, point, max_degree, use_lagrange)
-        return self._commit_prepared([prep])[0]
-
     def batch_prove_multi(self, transcript: Transcript, opens, max_degree: int):
-        """Several batch_prove calls whose quotient commitments ride one
-        batched MSM.  `opens`: list of (poly_blobs, point)."""
+        """Open several batches of polynomials, each at its own point
+        (pcs.rs:107-168); their quotient commitments ride one batched MSM.
+        `opens`: list of (poly_blobs, point), the blobs packed 32-byte LE
+        coefficients."""
         prepared = [
             self._prepare_open(transcript, blobs, point, max_degree)
             for blobs, point in opens

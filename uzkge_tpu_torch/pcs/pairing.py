@@ -54,10 +54,6 @@ class FQ12:
         return FQ12([1] + [0] * 11)
 
     @staticmethod
-    def zero():
-        return FQ12([0] * 12)
-
-    @staticmethod
     def from_fq(x):
         return FQ12([x % Q] + [0] * 11)
 

@@ -17,25 +17,16 @@ layout is required for the generated verifier keys to match the reference's.
 
 import os
 import traceback
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
-from ..constants.bn254 import R_MOD as P, EDWARDS_A, EDWARDS_D
+from ..constants.bn254 import R_MOD as P, EDWARDS_A
 from ..errors import DanglingWitnessError
-from ..constants.anemoi_constants import (
-    N_ANEMOI_ROUNDS,
-    GENERATOR as ANEMOI_GENERATOR,
-    GENERATOR_INV as ANEMOI_GENERATOR_INV,
-    MDS_MATRIX,
-    PREPROCESSED_ROUND_KEYS_X,
-    PREPROCESSED_ROUND_KEYS_Y,
-)
+from ..constants.anemoi_constants import N_ANEMOI_ROUNDS
 
 N_WIRES_PER_GATE = 5
 N_SELECTORS = 9
 N_WIRE_SELECTORS = 3
 N_SHUFFLE_RELATED_SELECTORS = 24
-
-_ALPHA_INV = pow(5, -1, P - 1)
 
 
 class TurboCS:
@@ -94,11 +85,6 @@ class TurboCS:
                 traceback.format_stack(limit=6)[:-1]
             )
         return self.num_vars - 1
-
-    def add_variables(self, values):
-        for v in values:
-            self.witness.append(v % P)
-        self.num_vars += len(values)
 
     def push_add_selectors(self, q1, q2, q3, q4):
         self.selectors[0].append(q1 % P)
@@ -165,11 +151,6 @@ class TurboCS:
     def add(self, left, right) -> int:
         out = self.new_variable((self.witness[left] + self.witness[right]) % P)
         self.insert_add_gate(left, right, out)
-        return out
-
-    def sub(self, left, right) -> int:
-        out = self.new_variable((self.witness[left] - self.witness[right]) % P)
-        self.insert_sub_gate(left, right, out)
         return out
 
     def equal(self, left, right):
@@ -239,19 +220,6 @@ class TurboCS:
         self.finish_new_gate()
         return out
 
-    def is_equal_or_not_equal(self, left, right):
-        """(turbo/mod.rs:814-836)"""
-        diff = self.sub(left, right)
-        d = self.witness[diff]
-        inv_diff = self.new_variable(pow(d, P - 2, P) if d else 0)
-        mul_var = self.mul(diff, inv_diff)
-        diff_is_zero = self.sub(self.one_var(), mul_var)
-        self.insert_mul_gate(diff, diff_is_zero, self.zero_var())
-        return diff_is_zero, mul_var
-
-    def is_equal(self, left, right):
-        return self.is_equal_or_not_equal(left, right)[0]
-
     def range_check(self, var, n_bits) -> List[int]:
         """0 <= witness[var] < 2^n_bits via booleans + 3-bit-per-gate
         accumulation (turbo/mod.rs:711-765)."""
@@ -280,13 +248,6 @@ class TurboCS:
         return b
 
     # --------------------------------------------------------------- loaders
-
-    def load_anemoi_parameters(self):
-        """(turbo/mod.rs:917-923)"""
-        self.anemoi_prk_x = [list(r) for r in PREPROCESSED_ROUND_KEYS_X]
-        self.anemoi_prk_y = [list(r) for r in PREPROCESSED_ROUND_KEYS_Y]
-        self.anemoi_generator = ANEMOI_GENERATOR
-        self.anemoi_generator_inv = ANEMOI_GENERATOR_INV
 
     def load_shuffle_remark_parameters(self, shuffle_pk):
         """(turbo/mod.rs:926-965)"""
@@ -337,9 +298,6 @@ class TurboCS:
         mixed-radix 6n — same interpolated quotient, see ntt.py docstring);
         16n for tiny circuits so deg t = 5n+10 < m."""
         return self.size * 8 if self.size > 4 else self.size * 16
-
-    def get_hiding_degree(self, idx: int) -> int:
-        return 3 if idx < 3 else 2
 
     def compute_permutation(self) -> List[int]:
         """Copy-constraint permutation: one cycle per variable over its
@@ -412,120 +370,11 @@ class TurboCS:
     # -------------------------------------------------------- witness checker
 
     @staticmethod
-    def eval_gate_func(wire_vals, sel_vals, pub_input):
-        add = (
-            sel_vals[0] * wire_vals[0]
-            + sel_vals[1] * wire_vals[1]
-            + sel_vals[2] * wire_vals[2]
-            + sel_vals[3] * wire_vals[3]
-        )
-        mul = sel_vals[4] * wire_vals[0] * wire_vals[1] + sel_vals[5] * wire_vals[2] * wire_vals[3]
-        ecc = sel_vals[7] * wire_vals[0] * wire_vals[1] % P * wire_vals[2] % P * wire_vals[3] % P * wire_vals[4]
-        out = sel_vals[8] * wire_vals[4]
-        return (add + mul + sel_vals[6] + pub_input + ecc - out) % P
-
-    @staticmethod
     def eval_selector_multipliers(w):
         """Coefficients (w1, w2, w3, w4, w1w2, w3w4, 1, w1w2w3w4wo, -w4o)
         (turbo/mod.rs:226-248)."""
         prod = w[0] * w[1] % P * w[2] % P * w[3] % P * w[4] % P
         return [w[0], w[1], w[2], w[3], w[0] * w[1] % P, w[2] * w[3] % P, 1, prod, (P - w[4]) % P]
-
-    def _wit(self, witness, wire, cs_index):
-        return witness[self.wiring[wire][cs_index]]
-
-    def verify_witness(self, witness, online_vars):
-        """Self-check interpreter (turbo/mod.rs:1041-1395); raises
-        AssertionError with context on the first violated constraint."""
-        assert len(witness) == self.num_vars, (len(witness), self.num_vars)
-        assert len(online_vars) == len(self.public_vars_witness_indices)
-
-        g = self.anemoi_generator
-        g2 = (g * g + 1) % P
-        ginv = self.anemoi_generator_inv
-        for cs_index in self.anemoi_constraints_indices:
-            for r in range(N_ANEMOI_ROUNDS):
-                a, b, c, d, o = (self._wit(witness, w, cs_index + r) for w in range(5))
-                an, bn, cn, dn = (self._wit(witness, w, cs_index + r + 1) for w in range(4))
-                assert o == dn, f"anemoi output chain broken at {cs_index}+{r}"
-                prka, prkb = self.anemoi_prk_x[r]
-                prkc, prkd = self.anemoi_prk_y[r]
-                da, cb = (a + d) % P, (b + c) % P
-                d2a, c2b = (da + a) % P, (cb + b) % P
-                t = (da + g * cb + prkc) % P
-                assert (pow((t - cn) % P, 5, P) + g * t * t - (d2a + g * c2b + prka)) % P == 0, \
-                    f"anemoi eq1 at {cs_index}+{r}"
-                t2 = (g * da + g2 * cb + prkd) % P
-                assert (pow((t2 - dn) % P, 5, P) + g * t2 * t2 - (g * d2a + g2 * c2b + prkb)) % P == 0, \
-                    f"anemoi eq2 at {cs_index}+{r}"
-                assert (pow((t - cn) % P, 5, P) + g * cn * cn + ginv - an) % P == 0, \
-                    f"anemoi eq3 at {cs_index}+{r}"
-                assert (pow((t2 - dn) % P, 5, P) + g * dn * dn + ginv - bn) % P == 0, \
-                    f"anemoi eq4 at {cs_index}+{r}"
-
-        for cs_index, wire_sel in self.shuffle_remark_constraint_indices:
-            ea = self.edwards_a
-            for r in range(self.n_iteration_shuffle_scalar_mul):
-                a, b, c, d, o = (self._wit(witness, w, cs_index + r) for w in range(5))
-                an, bn, cn, dn = (self._wit(witness, w, cs_index + r + 1) for w in range(4))
-                assert o == dn
-                s1, s2, s3 = wire_sel[0][r], wire_sel[1][r], wire_sel[2][r]
-                assert s1 in (0, 1) and s2 in (0, 1) and s3 in (1, P - 1)
-                sels = [
-                    (1 - s1) * (1 - s2) % P,
-                    s1 * (1 - s2) % P,
-                    (1 - s1) * s2 % P,
-                    s1 * s2 % P,
-                ]
-
-                def quad(u, v, un, tx, ty, tdxy, plus_a=False):
-                    # plus_a=False: s3*un - s3*u*ty - v*tx + u*v*un*tdxy
-                    # plus_a=True:  s3*un + a*u*tx - s3*v*ty - u*v*un*tdxy
-                    if not plus_a:
-                        return (s3 * un - s3 * u * ty - v * tx + u * v % P * un % P * tdxy) % P
-                    return (s3 * un + ea * u * tx - s3 * v * ty - u * v % P * un % P * tdxy) % P
-
-                eq1 = sum(
-                    sels[t] * quad(a, b, an, self.shuffle_pk_x[r][t], self.shuffle_pk_y[r][t], self.shuffle_pk_dxy[r][t])
-                    for t in range(4)
-                ) % P
-                assert eq1 == 0, f"shuffle eq1 at {cs_index}+{r}"
-                eq2 = sum(
-                    sels[t] * quad(a, b, bn, self.shuffle_pk_x[r][t], self.shuffle_pk_y[r][t], self.shuffle_pk_dxy[r][t], True)
-                    for t in range(4)
-                ) % P
-                assert eq2 == 0, f"shuffle eq2 at {cs_index}+{r}"
-                eq3 = sum(
-                    sels[t] * quad(c, d, cn, self.shuffle_gen_x[r][t], self.shuffle_gen_y[r][t], self.shuffle_gen_dxy[r][t])
-                    for t in range(4)
-                ) % P
-                assert eq3 == 0, f"shuffle eq3 at {cs_index}+{r}"
-                eq4 = sum(
-                    sels[t] * quad(c, d, o, self.shuffle_gen_x[r][t], self.shuffle_gen_y[r][t], self.shuffle_gen_dxy[r][t], True)
-                    for t in range(4)
-                ) % P
-                assert eq4 == 0, f"shuffle eq4 at {cs_index}+{r}"
-
-        pi_by_constraint = dict(zip(self.public_vars_constraint_indices, range(len(online_vars))))
-        for cs_index in range(self.size):
-            public_online = 0
-            if cs_index in pi_by_constraint:
-                pos = pi_by_constraint[cs_index]
-                public_online = online_vars[pos] % P
-                assert witness[self.public_vars_witness_indices[pos]] == public_online, \
-                    f"PI mismatch at constraint {cs_index}"
-            wires = [self._wit(witness, w, cs_index) for w in range(5)]
-            sels = [self.selectors[s][cs_index] for s in range(N_SELECTORS)]
-            assert self.eval_gate_func(wires, sels, public_online) == 0, \
-                f"gate unsatisfied at {cs_index}: wires={wires} sels={sels}"
-            if cs_index in self._boolean_set():
-                for w in wires[1:4]:
-                    assert w in (0, 1), f"boolean constraint violated at {cs_index}"
-
-    def _boolean_set(self):
-        if not hasattr(self, "_bool_cache") or len(self._bool_cache) != len(self.boolean_constraint_indices):
-            self._bool_cache = set(self.boolean_constraint_indices)
-        return self._bool_cache
 
     def shuffle_remark_indices_only(self):
         return [i for i, _ in self.shuffle_remark_constraint_indices]

@@ -6,8 +6,6 @@ Shuffle-shaped proof = 16 uncompressed G1 points + 19 Fr scalars = 1632 bytes;
 generic (non-shuffle) = 12 points + 15 scalars = 1248 bytes.
 """
 
-from typing import List
-
 from ..errors import ProofError
 from ..utils.serialize import point_to_uncompress_be, g1_from_uncompress_be, scalar_to_bytes_be, scalar_from_bytes_be
 

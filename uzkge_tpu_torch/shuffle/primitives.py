@@ -9,10 +9,10 @@ constants/bjj_generators.py).
 
 import random as _random
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 from ..constants.bn254 import R_MOD as P
-from ..constants.bjj_generators import GENERATORS_X, GENERATORS_Y, GENERATORS_DXY, NUM_ITERATIONS
+from ..constants.bjj_generators import GENERATORS_X, GENERATORS_Y, NUM_ITERATIONS
 from ..constants.bn254 import EDWARDS_D
 from ..curve import babyjubjub as bjj
 
@@ -145,10 +145,3 @@ class Permutation:
 
     def __len__(self):
         return len(self.matrix)
-
-    def sanity_check(self):
-        n = len(self.matrix)
-        for row in self.matrix:
-            assert sum(row) == 1
-        for j in range(n):
-            assert sum(self.matrix[i][j] for i in range(n)) == 1

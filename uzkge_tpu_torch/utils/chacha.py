@@ -63,13 +63,6 @@ class ChaCha20Rng:
         hi = self.next_u32()
         return lo | (hi << 32)
 
-    def fill_bytes(self, n: int) -> bytes:
-        # rand_core fills from u32 words, little-endian
-        out = bytearray()
-        while len(out) < n:
-            out += self.next_u32().to_bytes(4, "little")
-        return bytes(out[:n])
-
     # --- arkworks samplers -------------------------------------------------
 
     def ark_fr(self, modulus: int, n_limbs: int = 4) -> int:
@@ -89,19 +82,6 @@ class ChaCha20Rng:
                 v |= l << (64 * i)
             if v < modulus:
                 return v * r_inv % modulus
-
-    def gen_bool(self) -> bool:
-        """rand 0.8 `rng.gen::<bool>()`: one u32, top bit.
-
-        (rand's Standard distribution for bool samples a u32 and checks the
-        high bit: `self.next_u32() < (1 << 31)` is NOT it — it uses
-        `(rng.next_u32() >> 31) == 1`? Actually rand 0.8 does
-        `rng.gen::<u8>() & 1`? — see test coverage in tests/test_chacha.py
-        before relying on exact bool streams.)
-        """
-        # rand 0.8: impl Distribution<bool> for Standard:
-        #   rng.gen::<u32>() as i32 < 0  => high bit set
-        return (self.next_u32() >> 31) == 1
 
 
 def choose_ks(modulus: int, n_wires_per_gate: int = 5, seed: bytes = b"\x00" * 32):
