@@ -22,24 +22,46 @@ Phases, any failure exits nonzero:
      fb_bases, fb_mult_chunk, fq_batch_inv) at n = 256, c = 8, bits = 254
      (W = 32, K = 8192, D = 128) on the 52-card Lagrange basis, each against
      its plain version, then the whole table built by the kernels against the
-     one the plain versions build;
-  4. the main path: gen_shuffle_prover_params(52), the public-key refresh for
-     a seeded joint key, prove_shuffle with random.Random(seed) on a seeded
-     52-card deck; the proof must verify, a tampered deck must not, its sha256
-     must equal the JAX package's (tests/data/torch_golden.json), and every
-     kernel of the proof must have been launched by that run; then one more
+     one the plain versions build; on that table the query's kernels for P =
+     3 MSMs (fb_select, fb_pair_den and fb_pair_combine with identity and
+     x1 == x2 pairs planted, fq_batch_inv at the level's size, fb_fold at
+     widths 8 and 2), each against its plain version, and a whole msm_mont
+     against the host Pippenger;
+  4. the main path: gen_shuffle_prover_params(52), whose set-up now builds
+     the fixed-base table (fb_bases and fb_mult_chunk must be launched), the
+     public-key refresh for a seeded joint key, prove_shuffle with
+     random.Random(seed) on a seeded 52-card deck, every Lagrange commit
+     through the table; the proof must verify, a tampered deck must not, its
+     sha256 must equal the JAX package's (tests/data/torch_golden.json), and
+     every kernel of the proof must have been launched by that run; one more
      proof under torch.profiler gives the device's busy time (device events
-     only) and its idle share of the profiled proof;
-  5. the fixed-base path: KZG.lagrange_fb_table() over the 16384 Lagrange
-     bases (c = 8: 67,108,864 rows, 4.29 GB), timed, with its peak device
-     memory; sampled rows against host scalar multiples; each of its four
-     kernels launched by that build; then each kernel at that build's shapes
-     against its plain version, timed beside it;
+     only) and its idle share of the profiled proof; then the same proof on
+     the same prover params through a KZG with fixed_base=False (the
+     variable-base Pippenger), from the same rng state: the same sha256,
+     both Pippenger kernels launched; both proofs' stage times side by side;
+  5. the fixed-base path: the proof's table is dropped, and a fresh
+     KZG.lagrange_fb_table() over the 16384 Lagrange bases (c = 8: 67,108,864
+     rows, 4.29 GB) is timed, with its peak device memory; sampled rows
+     against host scalar multiples; each of its four kernels launched by
+     that build; then each kernel at that build's shapes against its plain
+     version, timed beside it; then the query at r1_commit's batch (P = 8,
+     n = 16384, K = 524,288 leaves per MSM), every kernel at every level
+     against its plain version, timed beside it (fb_select also beside
+     PyTorch's own gather of the same rows), and the whole query's points
+     against the variable-base Pippenger's on the same scalars;
   6. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
-     bound worked out from this run's shapes and what bounds it, and no
-     library call: no PyTorch call computes a BN254 NTT, MSM or table), the
-     card line, and last the contract line
+     bound worked out from this run's shapes and what bounds it, and the time
+     of one PyTorch call computing the same function where there is one:
+     only fb_select's gather; no PyTorch call computes a BN254 NTT, MSM,
+     table or group addition), the card line, and last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+The query kernels' times are per query of P = 8 MSMs, summed over its
+levels (each level's time is logged): AFFINE_LEVELS batch-affine levels
+(fb_pair_den, fq_batch_inv, fb_pair_combine) and five 8-to-1 folds plus the
+remainder's halving (fb_fold).  fp_mont_mul and fq_batch_inv run on both
+the proof and the table build; their JSON rows give the proof's launches
+and the query's shapes, and phase 5 logs their times at the build's.
 
 Bounds: the larger of the bytes the function must move (each input read
 once, each output written once) over 3.35 TB/s, and its 32-bit integer
@@ -54,9 +76,12 @@ projective addition (Alg. 7) 12, a doubling (Alg. 9) 8.  Their products by
 b3 = 3 * 3 = 9 cost no multiply (three doublings and an addition), so they
 are not counted, though field.cuh's g1_madd and g1_padd do them as
 products, and the kernels double with g1_padd.  A batch inversion of N
-elements needs 3 (N - 1) products and one Fermat inversion.
+elements needs 3 (N - 1) products and one Fermat inversion.  An affine pair
+addition given the inverse needs 3 products; a negation, a select or a
+difference none.
 """
 
+import gc
 import hashlib
 import json
 import os
@@ -286,8 +311,12 @@ def check_msm(dev, rng, rate):
 
 # ---------------------------------------------------------------- fixed base
 
-PROOF_KERNELS = ("ntt_pass", "msm_bucket_accumulate", "msm_bucket_reduce")
+PROOF_KERNELS = ("ntt_pass", "fp_mont_mul", "fb_select", "fb_pair_den", "fq_batch_inv",
+                 "fb_pair_combine", "fb_fold")
+VB_KERNELS = ("msm_bucket_accumulate", "msm_bucket_reduce")  # the fixed_base=False proof
+SETUP_KERNELS = ("fb_bases", "fb_mult_chunk")  # the table build in the proof's set-up
 FB_KERNELS = ("fp_mont_mul", "fb_bases", "fb_mult_chunk", "fq_batch_inv")
+STAGES = ("r1_commit", "r2_commit", "r3_t_split_commit", "r5_openings")
 
 
 def fq_rows(points, dev):
@@ -393,7 +422,8 @@ def check_fixed_base_small(dev, points, errs):
             lambda: fp_mont_mul_plain(fr, a, b))
 
     t0 = time.perf_counter()
-    table = fb.FixedBaseTable(points[:n], c=c, bits=bits, device=dev).table
+    tbl = fb.FixedBaseTable(points[:n], c=c, bits=bits, device=dev)
+    table = tbl.table
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     want = plain_table(x, y, W, c)
@@ -404,6 +434,57 @@ def check_fixed_base_small(dev, points, errs):
         raise AssertionError(f"fixed-base table n={n}: the kernels' table differs from the plain one")
     log(f"fixed-base table n={n} c={c} bits={bits} ({tuple(table.shape)}): kernels {t1 - t0:.3f} s "
         f"== plain versions {t2 - t1:.3f} s")
+    return tbl
+
+
+def check_query_small(dev, tbl, errs, rng):
+    """The query's kernels on the n = 256, c = 8 table for P = 3 MSMs, each
+    against its plain version on the same inputs: fb_select, a level with
+    identity and x1 == x2 pairs planted (fb_pair_den, fq_batch_inv at the
+    level's size, fb_pair_combine), fb_fold at widths 8 and 2; then a whole
+    msm_mont against the host Pippenger."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.msm import fixed_base as fb
+    from uzkge_tpu_torch.msm.msm import host_msm
+
+    P, n, K = 3, tbl.n, tbl.W * tbl.n
+    H = K // 2
+    rows = [[rng.randrange(R_MOD) for _ in range(n)] for _ in range(P)]
+    rows[1] = [0] * n
+    rows[1][7] = rng.randrange(R_MOD)
+    sc = fr.to_mont_limbs([v for row in rows for v in row], dev).reshape(P, n, 8)
+    d = fb.scalars_to_digits(sc, tbl.c, tbl.bits).transpose(1, 2).reshape(P, K).contiguous()
+    x, y, inf = compare(errs, "fb_select", f"P={P} K={K}", lambda: fb.fb_select(d, tbl.table),
+                        lambda: fb.fb_select_plain(d, tbl.table))[0]
+    x, inf = x.clone(), inf.clone()
+    inf[0, [0, H, 1, 2 + H]] = 1  # pairs 0, 1, 2 of MSM 0: both, first, second the identity
+    inf[0, [1 + H, 2]] = 0
+    x[2, 3 + H] = x[2, 3]  # pair 3 of MSM 2: x1 == x2
+    inf[2, [3, 3 + H]] = 0
+    den, flags = compare(errs, "fb_pair_den", f"P={P} H={H}", lambda: fb.fb_pair_den(x, inf),
+                         lambda: fb.fb_pair_den_plain(x, inf))[0]
+    if flags[0, :3].tolist() != [3, 1, 2] or int(flags[2, 3]) != 4:
+        raise AssertionError("fb_pair_den: the planted pairs' flags are wrong")
+    flat = den.view(P * H, 8)
+    (dinv,) = compare(errs, "fq_batch_inv", f"N={P * H}", lambda: fb.fq_batch_inv(flat),
+                      lambda: fb.fq_batch_inv_plain(flat))[0]
+    dinv = dinv.view(P, H, 8)
+    xo, yo, io = compare(errs, "fb_pair_combine", f"P={P} H={H}",
+                         lambda: fb.fb_pair_combine(x, y, dinv, flags),
+                         lambda: fb.fb_pair_combine_plain(x, y, dinv, flags))[0]
+    if io[0, :3].tolist() != [1, 0, 0] or int(io[2, 3]) != 1:
+        raise AssertionError("fb_pair_combine: the planted pairs' identity flags are wrong")
+    pts = fb.to_projective(xo, yo, io)
+    compare(errs, "fb_fold", f"P={P} Kc={H} w=8", lambda: fb.fb_fold(*pts, 8),
+            lambda: fb.fb_fold_plain(*pts, 8))
+    two = tuple(t[:, :64].contiguous() for t in pts)
+    compare(errs, "fb_fold", f"P={P} Kc=64 w=2", lambda: fb.fb_fold(*two, 2),
+            lambda: fb.fb_fold_plain(*two, 2))
+    got = tbl.msm_mont(sc)
+    if got != [host_msm(tbl.points, row) for row in rows] or got[0] is None:
+        raise AssertionError("msm_mont (n = 256, P = 3) disagrees with the host Pippenger")
+    log(f"fixed-base query n={n} P={P}: kernels == plain, msm_mont == host Pippenger")
 
 
 def check_table_rows(tbl, rng) -> int:
@@ -426,12 +507,19 @@ def check_table_rows(tbl, rng) -> int:
 
 
 def fixed_base_path(dev, rng):
-    """The fixed-base path: KZG.lagrange_fb_table() over the 52-card
-    Lagrange basis, with the launch counts set to 0 just before it."""
+    """The fixed-base path: a fresh KZG.lagrange_fb_table() over the 52-card
+    Lagrange basis, with the launch counts set to 0 just before it.  The
+    proof's KZG built its table at set-up; that table is dropped first (the
+    KZG's cache of it cleared, the allocator's cache emptied), so that
+    "before" is what the rest of the run holds and the peak is this build's
+    own; the new table then serves the query measurements."""
     from uzkge_tpu_torch import kernels
     from uzkge_tpu_torch.gen_params import load_srs
 
     kzg = load_srs(16384, dev)
+    kzg._lagrange_fb = None
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -583,24 +671,11 @@ def profile_table_build(tbl, dev):
     log_device_time(events, 10)
 
 
-def main_path(dev, golden):
-    """The seeded 52-card proof; `golden` is its record in torch_golden.json
-    (the seed the JAX package used and its proof's sha256)."""
-    from uzkge_tpu_torch.plonk.proof_io import proof_from_bytes_be, proof_to_bytes_be
+def prove_timed(app, rng, joint, deck, pp, kzg, name):
+    """One prove_shuffle with the stage timer and the launch counts set to 0
+    just before it; returns (proof, outputs, latency s, launches, stages)."""
     from uzkge_tpu_torch import kernels
-    from uzkge_tpu_torch.plonk.indexer import refresh_prover_params_public_key
-    from uzkge_tpu_torch.shuffle import app
     from uzkge_tpu_torch.utils import stagetimer
-
-    n_cards, seed = 52, golden["seed"]
-    t0 = time.perf_counter()
-    pp, cs, kzg = app.gen_shuffle_prover_params(n_cards, dev)
-    rng = random.Random(seed)
-    joint, deck = app.seeded_game(rng, n_cards)
-    refresh_prover_params_public_key(pp, cs, kzg, joint)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    log(f"prover params (n = {pp.n}, m = {pp.m}) and key refresh: {setup_s:.3f} s")
 
     stagetimer.reset()
     kernels.reset_launches()
@@ -608,19 +683,55 @@ def main_path(dev, golden):
     proof, outputs = app.prove_shuffle(rng, joint, deck, pp, kzg)
     torch.cuda.synchronize()
     latency = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    log(f"prove52 latency: {latency:.3f} s")
-    log("stage breakdown (s): " + json.dumps(stagetimer.snapshot()))
-    log("main-path launches: " + json.dumps(launches))
-    missing = [k for k in PROOF_KERNELS if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
+    launches, stages = dict(kernels.LAUNCHES), stagetimer.snapshot()
+    log(f"prove52 ({name}) latency: {latency:.3f} s")
+    log(f"stage breakdown ({name}, s): " + json.dumps(stages))
+    log(f"launches ({name}): " + json.dumps(launches))
+    return proof, outputs, latency, launches, stages
 
-    blob = proof_to_bytes_be(proof)
+
+def check_digest(blob, golden, name):
     digest = hashlib.sha256(blob).hexdigest()
     if digest != golden["sha256"]:
-        raise AssertionError(f"proof sha256 {digest} != golden {golden['sha256']}")
-    log(f"proof sha256 {digest} == golden (JAX package, same seeds)")
+        raise AssertionError(f"proof sha256 ({name}) {digest} != golden {golden['sha256']}")
+    log(f"proof sha256 ({name}) {digest} == golden (JAX package, same seeds)")
+
+
+def main_path(dev, golden):
+    """The seeded 52-card proof, on the fixed-base route (the card's
+    default), then again on the same prover params through a fixed_base=False
+    KZG; `golden` is its record in torch_golden.json (the seed the JAX
+    package used and its proof's sha256).  Returns the launches of the
+    fixed-base proof and of the variable-base proof."""
+    from uzkge_tpu_torch import kernels
+    from uzkge_tpu_torch.gen_params import load_srs
+    from uzkge_tpu_torch.plonk.indexer import refresh_prover_params_public_key
+    from uzkge_tpu_torch.plonk.proof_io import proof_from_bytes_be, proof_to_bytes_be
+    from uzkge_tpu_torch.shuffle import app
+
+    n_cards, seed = 52, golden["seed"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pp, cs, kzg = app.gen_shuffle_prover_params(n_cards, dev)
+    rng = random.Random(seed)
+    joint, deck = app.seeded_game(rng, n_cards)
+    refresh_prover_params_public_key(pp, cs, kzg, joint)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup = {k: kernels.LAUNCHES[k] for k in SETUP_KERNELS + ("fb_select",)}
+    log(f"prover params (n = {pp.n}, m = {pp.m}) and key refresh: {setup_s:.3f} s; "
+        f"set-up launches {json.dumps(setup)}")
+    if not kzg.uses_fixed_base() or min(setup.values()) <= 0:
+        raise AssertionError("the set-up did not build the fixed-base table and commit through it")
+    state = rng.getstate()
+
+    proof, outputs, latency, launches, stages = prove_timed(app, rng, joint, deck, pp, kzg,
+                                                            "fixed-base")
+    missing = [k for k in PROOF_KERNELS if launches[k] <= 0]
+    if missing or kzg._lagrange_vb is not None:
+        raise AssertionError(f"the fixed-base proof launched no {missing} or used the Pippenger")
+    blob = proof_to_bytes_be(proof)
+    check_digest(blob, golden, "fixed-base")
     proof2 = proof_from_bytes_be(blob)
     if len(blob) != 1632 or not app.verify_shuffle(pp.verifier_params, kzg, deck, outputs, proof2):
         raise AssertionError("the port's verifier rejects the proof")
@@ -630,7 +741,113 @@ def main_path(dev, golden):
         raise AssertionError("the verifier accepts a tampered public input")
     log("verifier: proof accepted, tampered deck rejected")
     profile_prove(seed, pp, kzg, joint, deck, latency)
-    return launches
+
+    kzg_vb = load_srs(pp.n, dev, fixed_base=False)
+    kzg_vb.commit_evals(torch.zeros((pp.n, 8), dtype=torch.int32, device=dev))  # its bases
+    rng_vb = random.Random()
+    rng_vb.setstate(state)
+    proof_vb, _, latency_vb, launches_vb, stages_vb = prove_timed(app, rng_vb, joint, deck, pp,
+                                                                  kzg_vb, "variable-base")
+    check_digest(proof_to_bytes_be(proof_vb), golden, "variable-base")
+    missing = [k for k in VB_KERNELS if launches_vb[k] <= 0]
+    if missing or launches_vb["fb_select"]:
+        raise AssertionError(f"the variable-base proof launched no {missing} or used the table")
+    log(f"{'stage (s)':24s} {'fixed-base':>12s} {'variable-base':>14s}")
+    for name in ("latency",) + STAGES:
+        a, b = (latency, latency_vb) if name == "latency" else (stages[name], stages_vb[name])
+        log(f"{name:24s} {a:12.4f} {b:14.4f}")
+    return launches, launches_vb
+
+
+def check_query_full(dev, tbl, rate, errs, rng):
+    """The query at r1_commit's batch: P = 8 MSMs over the n = 16384 table
+    (K = 524,288 leaves each), every kernel at every level against its plain
+    version on the same inputs, timed beside it; per kernel the times, bytes
+    and products summed over the query's levels.  Then the whole query, timed,
+    against the variable-base Pippenger on the same scalars."""
+    from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul, fp_mont_mul_plain
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.msm import fixed_base as fb
+    from uzkge_tpu_torch.msm import msm as M
+
+    P, n = 8, tbl.n
+    K = tbl.W * n
+    sums = {}
+
+    def add(name, ms, pms, nbytes, products, shape):
+        s = sums.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "products": 0,
+                                   "shape": []})
+        s["ms"] += ms
+        s["plain_ms"] += pms
+        s["bytes"] += nbytes
+        s["products"] += products
+        s["shape"].append(shape)
+
+    sc = random_fr(P * n, dev).view(P, n, 8)  # canonical values: valid Montgomery forms
+    flat = sc.view(P * n, 8)
+    one = fr.const_raw(1, dev).expand(P * n, 8).contiguous()
+    shape = f"Fr N={P * n}"
+    _, ms, pms = compare(errs, "fp_mont_mul", shape, lambda: fp_mont_mul(fr, flat, one),
+                         lambda: fp_mont_mul_plain(fr, flat, one))
+    add("fp_mont_mul", ms, pms, 96 * P * n, P * n, shape)
+    d = fb.scalars_to_digits(sc, tbl.c, tbl.bits).transpose(1, 2).reshape(P, K).contiguous()
+    shape = f"P={P} K={K}"
+    (x, y, inf), ms, pms = compare(errs, "fb_select", shape, lambda: fb.fb_select(d, tbl.table),
+                                   lambda: fb.fb_select_plain(d, tbl.table))
+    add("fb_select", ms, pms, P * K * (4 + 64 + 64 + 4), 0, shape)
+    leaf = torch.arange(K, device=dev)[None, :]
+    row = (d.abs() - 1).clamp(min=0)
+    lib_ms, rows = cuda_ms(lambda: tbl.table[leaf, row])
+    if not torch.equal(rows[..., :8], x):
+        raise AssertionError("PyTorch's gather of the rows disagrees with fb_select's x")
+    log(f"fb_select library: table[k, |d| - 1] by advanced indexing {lib_ms:.4f} ms")
+    del rows
+    Kc = K
+    for _ in range(fb.AFFINE_LEVELS):
+        H = Kc // 2
+        shape = f"P={P} H={H}"
+        (den, flags), ms, pms = compare(errs, "fb_pair_den", shape,
+                                        lambda: fb.fb_pair_den(x, inf),
+                                        lambda: fb.fb_pair_den_plain(x, inf))
+        add("fb_pair_den", ms, pms, P * Kc * 36 + P * H * 36, 0, shape)
+        dflat = den.view(P * H, 8)
+        (dinv,), ms, pms = compare(errs, "fq_batch_inv", f"N={P * H}",
+                                   lambda: fb.fq_batch_inv(dflat),
+                                   lambda: fb.fq_batch_inv_plain(dflat))
+        add("fq_batch_inv", ms, pms, 64 * P * H, batch_inv_products(P * H), f"N={P * H}")
+        dinv = dinv.view(P, H, 8)
+        (x, y, inf), ms, pms = compare(errs, "fb_pair_combine", shape,
+                                       lambda: fb.fb_pair_combine(x, y, dinv, flags),
+                                       lambda: fb.fb_pair_combine_plain(x, y, dinv, flags))
+        add("fb_pair_combine", ms, pms, P * Kc * 64 + P * H * (32 + 4 + 64 + 4), 3 * P * H, shape)
+        Kc = H
+    pts = fb.to_projective(x, y, inf)
+    while Kc > 1:
+        w = 8 if Kc % 8 == 0 else Kc
+        shape = f"P={P} Kc={Kc} w={w}"
+        pts, ms, pms = compare(errs, "fb_fold", shape, lambda: fb.fb_fold(*pts, w),
+                               lambda: fb.fb_fold_plain(*pts, w))
+        add("fb_fold", ms, pms, 96 * P * Kc + 96 * P * (Kc // w), PADD_PRODUCTS * P * (Kc - Kc // w),
+            shape)
+        Kc //= w
+
+    query_ms, (X, Y, Z) = cuda_ms(lambda: tbl.query(sc), reps=3)
+    got = tbl.msm_mont(sc)
+    bases = M.MSMBases(tbl.points, dev)
+    if got != M.msm(bases, sc) or None in got:
+        raise AssertionError("the fixed-base query disagrees with the Pippenger (P = 8, dense)")
+    if fb._extract_host(*pts) != got:
+        raise AssertionError("the query's kernels, level by level, disagree with msm_mont")
+    log(f"fixed-base query P={P} n={n} K={K}: {query_ms:.4f} ms on the card (digits, select, "
+        f"levels, folds; mean of 3), points == the variable-base Pippenger's")
+    res = {}
+    for name, s in sums.items():
+        res[name] = {"ms": s["ms"], "plain_ms": s["plain_ms"], "shape": "; ".join(s["shape"]),
+                     "max_abs_err": errs[name], **bound(s["bytes"], s["products"], rate)}
+        log(f"{name} per query: kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, "
+            f"bound {res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
+    res["fb_select"]["library_ms"] = lib_ms
+    return res, query_ms
 
 
 def main():
@@ -659,24 +876,35 @@ def main():
     from uzkge_tpu_torch.gen_params import load_srs
 
     errs = {}
-    check_fixed_base_small(dev, load_srs(16384, dev)._lagrange_points, errs)
+    small = check_fixed_base_small(dev, load_srs(16384, dev)._lagrange_points, errs)
+    check_query_small(dev, small, errs, rng)
+    del small
 
-    launches = main_path(dev, golden)
+    launches, launches_vb = main_path(dev, golden)
     tbl, fb_launches = fixed_base_path(dev, rng)
-    launches.update(fb_launches)
     fbres = check_fixed_base_full(dev, tbl, rate, errs)
+    qres, _ = check_query_full(dev, tbl, rate, errs, rng)
+    launches.update({k: launches_vb[k] for k in VB_KERNELS})
+    launches.update({k: fb_launches[k] for k in SETUP_KERNELS})
 
     fb_src = "uzkge_tpu_torch/csrc/fixed_base.cu"
+    q_src = "uzkge_tpu_torch/csrc/fixed_base_query.cu"
+    jfb = "uzkge_tpu/msm/fixed_base.py"
     rows = [
         ("ntt_pass", "uzkge_tpu_torch/csrc/ntt.cu", "uzkge_tpu/ntt/pallas_ntt.py:87", ntt),
         ("msm_bucket_accumulate", "uzkge_tpu_torch/csrc/msm.cu", "uzkge_tpu/msm/msm.py:184", acc),
         ("msm_bucket_reduce", "uzkge_tpu_torch/csrc/msm.cu", "uzkge_tpu/msm/msm.py:197", red),
         ("fp_mont_mul", "uzkge_tpu_torch/csrc/mont_mul.cu", "uzkge_tpu/ff/pallas_field.py:69",
-         fbres["fp_mont_mul"]),
-        ("fb_bases", fb_src, "uzkge_tpu/msm/fixed_base.py:232", fbres["fb_bases"]),
-        ("fb_mult_chunk", fb_src, "uzkge_tpu/msm/fixed_base.py:254", fbres["fb_mult_chunk"]),
-        # _prod_kernel (:274) and _inv_kernel (:283), through pbatch_inv_fq
-        ("fq_batch_inv", fb_src, "uzkge_tpu/msm/fixed_base.py:274", fbres["fq_batch_inv"]),
+         qres["fp_mont_mul"]),
+        ("fb_bases", fb_src, f"{jfb}:232", fbres["fb_bases"]),
+        ("fb_mult_chunk", fb_src, f"{jfb}:254", fbres["fb_mult_chunk"]),
+        # _prod_kernel, _inv_kernel (pbatch_inv_fq); _prefix_kernel, _invback_kernel,
+        # _fermat_bits_kernel (pbatch_inv_fq_fast)
+        ("fq_batch_inv", fb_src, f"{jfb}:274,283,334,345,355", qres["fq_batch_inv"]),
+        ("fb_select", q_src, f"{jfb}:607", qres["fb_select"]),
+        ("fb_pair_den", q_src, f"{jfb}:630,737", qres["fb_pair_den"]),
+        ("fb_pair_combine", q_src, f"{jfb}:652,757", qres["fb_pair_combine"]),
+        ("fb_fold", q_src, f"{jfb}:680", qres["fb_fold"]),
     ]
     out = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -4,11 +4,13 @@ Two layers are held against the reference here, exactly (field arithmetic
 has no rounding):
   * uzkge_tpu_torch/ff/field.py, the torch-op field (the plain version that
     the CPU runs), against uzkge_tpu/ff/jax_field.py::fr_ctx / fq_ctx;
-  * uzkge_tpu_torch/csrc/field.cuh and csrc/fixed_base.cuh, the kernels' own
-    arithmetic, compiled with g++ into a small ctypes harness, against
-    fq_ctx / fr_ctx, the host curve arithmetic of uzkge_tpu/curve/bn254.py,
-    and the fixed-base group chains and batch inversion of the JAX package
-    (msm/fixed_base.py's padd_g / madd_g, ff/vfield.py's batch_inv).
+  * uzkge_tpu_torch/csrc/field.cuh, csrc/fixed_base.cuh and
+    csrc/fixed_base_query.cuh, the kernels' own arithmetic, compiled with g++
+    into a small ctypes harness, against fq_ctx / fr_ctx, the host curve
+    arithmetic of uzkge_tpu/curve/bn254.py, the fixed-base group chains and
+    batch inversion of the JAX package (msm/fixed_base.py's padd_g / madd_g,
+    ff/vfield.py's batch_inv), and the JAX query kernels' bodies (the select,
+    the pair den / combine with their flags, the projective fold).
 Inputs come from numpy with a fixed seed plus the edge values 0, 1, p-1 and
 values near 2^254.
 """
@@ -88,7 +90,7 @@ def test_field_codecs_match_jax(name, p, jctx, tctx):
 # ------------------------------------------------ the kernels' own arithmetic
 
 _HARNESS = r"""
-#include "fixed_base.cuh"
+#include "fixed_base_query.cuh"
 extern "C" {
 #define BIN(name, F, fn) \
   void name(uint32_t *r, const uint32_t *a, const uint32_t *b, int n) { \
@@ -135,6 +137,19 @@ void fq_inv_back_n(const uint32_t *a, const uint32_t *pref, const uint32_t *pinv
   for (long long t = 0; t < M; t++) fq_inv_back_group(a, pref, pinv, out, t, M, N); }
 void fq_inv_fermat_n(uint32_t *r, const uint32_t *a, int n) {
   for (int i = 0; i < n; i++) fq_inv_fermat(r + 8 * i, a + 8 * i); }
+void fb_select_n(const uint32_t *table, const int32_t *digits, uint32_t *x, uint32_t *y,
+                 int32_t *inf, long long P, long long K, int D) {
+  for (long long t = 0; t < P * K; t++) fb_select_lane(table, digits, x, y, inf, t, K, D); }
+void fb_pair_den_n(const uint32_t *x, const int32_t *inf, uint32_t *den, int32_t *flags,
+                   long long P, long long H) {
+  for (long long t = 0; t < P * H; t++) fb_pair_den_lane(x, inf, den, flags, t, H); }
+void fb_pair_combine_n(const uint32_t *x, const uint32_t *y, const uint32_t *dinv,
+                       const int32_t *flags, uint32_t *xo, uint32_t *yo, int32_t *info,
+                       long long P, long long H) {
+  for (long long t = 0; t < P * H; t++) fb_pair_combine_lane(x, y, dinv, flags, xo, yo, info, t, H); }
+void fb_fold_n(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX, uint32_t *oY,
+               uint32_t *oZ, long long groups, int w) {
+  for (long long g = 0; g < groups; g++) fb_fold_lane(X, Y, Z, oX, oY, oZ, (size_t)g, w); }
 }
 """
 
@@ -161,6 +176,11 @@ def header_lib(tmp_path_factory):
     lib.fq_inv_prefix_n.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
     lib.fq_inv_back_n.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
     lib.fq_inv_fermat_n.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    ll = ctypes.c_longlong
+    lib.fb_select_n.argtypes = [ctypes.c_void_p] * 5 + [ll, ll, ctypes.c_int]
+    lib.fb_pair_den_n.argtypes = [ctypes.c_void_p] * 4 + [ll, ll]
+    lib.fb_pair_combine_n.argtypes = [ctypes.c_void_p] * 7 + [ll, ll]
+    lib.fb_fold_n.argtypes = [ctypes.c_void_p] * 6 + [ll, ctypes.c_int]
     return lib
 
 
@@ -323,3 +343,118 @@ def test_fq_batch_inv_sweeps_match_jax(header_lib):
                                  pref.ctypes.data, m_l, n_l)
         inv = pref
     assert (inv == _rows_of_v(vfq.batch_inv(_jax_v(vals)))).all()
+
+
+# ------------------------------------------- the query kernels' arithmetic
+
+
+def _q_vals(rs, shape):
+    """Seeded canonical Fq values as a (..., 8) uint32 buffer."""
+    n = int(np.prod(shape))
+    vals = [v % Q_MOD for v in _values(Q_MOD, n, int(rs.integers(1 << 30)))[:n]]
+    return np.ascontiguousarray(tf.ints_to_limbs(vals).view(np.uint32).reshape(shape + (8,)))
+
+
+def _jv(a):
+    """(..., 8) uint32 buffer -> the JAX package's (16, ...) layout (jnp)."""
+    import jax.numpy as jnp
+
+    return jnp.asarray(np.moveaxis(tf.to_jax_limbs(torch.from_numpy(a.view(np.int32))), -1, 0))
+
+
+def _from_jv(v):
+    return _u32(np.moveaxis(np.asarray(v), 0, -1))
+
+
+def _p(a):
+    return a.ctypes.data
+
+
+def test_query_select_header_matches_jax(header_lib):
+    """fb_select_lane against _select_kernel's body (one block), P = 2, K = 16,
+    D = 4: digits over [-D, D], one out of range."""
+    from uzkge_tpu.msm.fixed_base import _select_kernel
+
+    P, K, D = 2, 16, 4
+    rs = np.random.default_rng(31)
+    table = _q_vals(rs, (K, D, 2)).reshape(K, D, 16)
+    digits = np.ascontiguousarray(rs.integers(-D, D + 1, size=(P, K)).astype(np.int32))
+    digits[0, :2] = [0, -D - 1]
+    vertical = table.view(np.uint16).reshape(K, D, 32).transpose(1, 2, 0)
+    jx, jy = np.zeros((16, P, K), np.uint32), np.zeros((16, P, K), np.uint32)
+    jinf = np.zeros((P, K), np.uint32)
+    _select_kernel(P, D, vertical, digits, jx, jy, jinf)
+    x, y = np.zeros((P, K, 8), np.uint32), np.zeros((P, K, 8), np.uint32)
+    inf = np.zeros((P, K), np.int32)
+    header_lib.fb_select_n(_p(table), _p(digits), _p(x), _p(y), _p(inf), P, K, D)
+    assert (x == _from_jv(jx)).all() and (y == _from_jv(jy)).all() and (inf == jinf).all()
+
+
+def test_query_pair_header_matches_jax(header_lib):
+    """fb_pair_den_lane and fb_pair_combine_lane against the bodies of
+    _pair_den_small_kernel and _pair_combine_small_kernel at P = 2, H = 8,
+    with every flag planted: both sides the identity, one side, x1 == x2
+    (degenerate: the identity out), x1 == x2 beside an identity (passed
+    through); dinv from vfq.batch_inv."""
+    from uzkge_tpu.ff.vfield import vfq
+    from uzkge_tpu.msm.fixed_base import _pair_combine_small_kernel, _pair_den_small_kernel
+
+    P, H = 2, 8
+    rs = np.random.default_rng(32)
+    x, y = _q_vals(rs, (P, 2 * H)), _q_vals(rs, (P, 2 * H))
+    inf = np.zeros((P, 2 * H), np.int32)
+    inf[0, [0, H, 1, 2 + H]] = 1  # pair 0: both; 1: first; 2: second
+    x[1, 3 + H] = x[1, 3]  # pair 3 of MSM 1: degenerate
+    x[1, 4 + H] = x[1, 4]
+    inf[1, 4 + H] = 1  # pair 4: equal x beside an identity
+    jden, jflags = np.zeros((16, P, H), np.uint32), np.zeros((P, H), np.uint32)
+    _pair_den_small_kernel(H, _jv(x), inf.astype(np.uint32), jden, jflags)
+    den, flags = np.zeros((P, H, 8), np.uint32), np.zeros((P, H), np.int32)
+    header_lib.fb_pair_den_n(_p(x), _p(inf), _p(den), _p(flags), P, H)
+    assert (den == _from_jv(jden)).all() and (flags == jflags).all()
+    assert flags[0, :3].tolist() == [3, 1, 2] and flags[1, 3:5].tolist() == [4, 2]
+
+    dinv = _from_jv(vfq.batch_inv(_jv(den).reshape(16, P * H)).reshape(16, P, H))
+    jxo, jyo = np.zeros((16, P, H), np.uint32), np.zeros((16, P, H), np.uint32)
+    jinf = np.zeros((P, H), np.uint32)
+    _pair_combine_small_kernel(H, _jv(x), _jv(y), _jv(dinv), jflags, jxo, jyo, jinf)
+    xo, yo = np.zeros((P, H, 8), np.uint32), np.zeros((P, H, 8), np.uint32)
+    info = np.zeros((P, H), np.int32)
+    header_lib.fb_pair_combine_n(_p(x), _p(y), _p(dinv), _p(flags), _p(xo), _p(yo), _p(info),
+                                 P, H)
+    assert (xo == _from_jv(jxo)).all() and (yo == _from_jv(jyo)).all() and (info == jinf).all()
+    assert info[0, :3].tolist() == [1, 0, 0] and info[1, 3:5].tolist() == [1, 0]
+    assert (xo[0, 1] == x[0, 1 + H]).all() and (yo[0, 2] == y[0, 2]).all()  # pass-through
+
+
+@pytest.mark.parametrize("w", [8, 4, 2])
+def test_query_fold_header_matches_jax(header_lib, w):
+    """fb_fold_lane over groups of w consecutive projective points against the
+    JAX package's halving tree: the _fold8_kernel body for w = 8 (lazy mod-2p
+    values, compared mod p), padd_g over vfq for w = 4 and 2 (the
+    remainder's halving), identities among the points."""
+    from uzkge_tpu.ff.vfield import vfq
+    from uzkge_tpu.msm.fixed_base import _fold8_kernel, padd_g
+
+    P, G = 2, 3
+    rs = np.random.default_rng(33 + w)
+    X, Y, Z = (_q_vals(rs, (P, G * w)) for _ in range(3))
+    ident = rs.random((P, G * w)) < 0.3
+    X[ident], Z[ident] = 0, 0
+    Y[ident] = _u32(fq_ctx.to_mont_limbs([1]))[0]
+    out = [np.zeros((P, G, 8), np.uint32) for _ in range(3)]
+    header_lib.fb_fold_n(_p(X), _p(Y), _p(Z), *(_p(o) for o in out), P * G, w)
+    if w == 8:
+        lay = [_jv(t).reshape(16, P, G, 8).transpose(0, 3, 1, 2) for t in (X, Y, Z)]
+        want = [np.zeros((16, P, G), np.uint32) for _ in range(3)]
+        _fold8_kernel(*lay, *want)
+    else:
+        want = [_jv(t).reshape(16, P, G, w) for t in (X, Y, Z)]
+        while want[0].shape[-1] > 1:
+            h = want[0].shape[-1] // 2
+            want = padd_g(vfq, tuple(t[..., :h] for t in want), tuple(t[..., h:] for t in want))
+        want = [t[..., 0] for t in want]
+    for o, wv in zip(out, want):
+        got = tf.limbs_to_ints(o.view(np.int32))
+        ref = tf.limbs_to_ints(_from_jv(wv).view(np.int32))
+        assert [v % Q_MOD for v in got] == [v % Q_MOD for v in ref] and max(got) < Q_MOD

@@ -5,7 +5,12 @@ On the add-gate circuit proven under the shuffle protocol shape
 package with its own TurboCS:
   * the port's indexer against the JAX one, array by array;
   * `prover` on both packages with random.Random(99): byte-identical
-    proof_io bytes, accepted by both verifiers.
+    proof_io bytes, accepted by both verifiers; the port proves with its
+    Lagrange commits on the variable-base Pippenger (`fixed_base=False`)
+    and again through the fixed-base table (`fixed_base=True`), both equal
+    to the JAX package's bytes;
+  * KZG's commit route: `_fb_enabled` as in the JAX package, and the
+    `fixed_base` argument that overrides it.
 The 20-card shuffle proof is held against the JAX package's digest in
 tests/data/torch_golden.json, made under UZKGE_FB=0 (slow).
 """
@@ -45,8 +50,8 @@ def _add_gate_circuit(TurboCS):
 @pytest.fixture(scope="module")
 def both():
     """The same circuit (each package's own TurboCS), SRS and rng through
-    both packages.  The port commits
-    in the Lagrange basis through its device MSM; the JAX package, given the
+    both packages.  The port commits in the Lagrange basis through its
+    variable-base MSM (`fixed_base=False`); the JAX package, given the
     same SRS without Lagrange bases, commits in the coefficient basis with
     its host Pippenger.  A polynomial has one commitment whatever the basis,
     so equal proof bytes hold both commit paths to each other."""
@@ -65,7 +70,7 @@ def both():
     cs, witness = _add_gate_circuit(TurboCS)
     assert witness == jwitness
     n = cs.size
-    tkzg = KZG.setup_insecure(2 * n + 10, tau=TAU, domain_n=n, device="cpu")
+    tkzg = KZG.setup_insecure(2 * n + 10, tau=TAU, domain_n=n, device="cpu", fixed_base=False)
     jkzg = JaxKZG(tkzg.g1_powers, tkzg.g2_powers)
     jpp = jax_indexer(jcs, jkzg, with_shuffle=True)
     jproof = jax_prover(random.Random(99), JaxTranscript(b"Test"), jkzg, jcs, jpp, jwitness)
@@ -116,6 +121,47 @@ def test_proof_bytes_match_jax(both):
     assert len(tb) == len(jb) and tb == jb
 
 
+def test_fixed_base_proof_bytes_match_jax(both):
+    """The same proof with every Lagrange commit through the fixed-base table
+    (n = 64, c = 8, on the CPU's plain versions), over the fixture's SRS."""
+    from uzkge_tpu_torch.pcs.kzg import KZG
+    from uzkge_tpu_torch.plonk.cs import TurboCS
+    from uzkge_tpu_torch.plonk.indexer import indexer
+    from uzkge_tpu_torch.plonk.prover import prover
+
+    t = both["tkzg"]
+    kzg = KZG(t.g1_powers, t.g2_powers, t._lagrange_points, device="cpu", fixed_base=True)
+    cs, witness = _add_gate_circuit(TurboCS)
+    pp = indexer(cs, kzg, with_shuffle=True)
+    proof = prover(random.Random(99), Transcript(b"Test"), kzg, cs, pp, witness)
+    assert kzg._lagrange_fb is not None and kzg._lagrange_vb is None
+    assert (kzg.lagrange_fb_table().n, kzg.lagrange_fb_table().c) == (64, 8)
+    assert proof_to_bytes_be(proof) == jax_proof_to_bytes_be(both["jproof"])
+
+
+def test_kzg_route_follows_fb_enabled(both, monkeypatch):
+    """With no `fixed_base`, KZG routes Lagrange commits as the JAX package's
+    _fb_enabled does with UZKGE_FB unset: on the CPU through the table up to
+    n = 512, on the accelerator always; `fixed_base` overrides the rule."""
+    from uzkge_tpu.ff import pallas_field
+    from uzkge_tpu.pcs.kzg import _fb_enabled as jax_fb_enabled
+    from uzkge_tpu_torch.pcs.kzg import KZG, _fb_enabled
+
+    monkeypatch.delenv("UZKGE_FB", raising=False)
+    g = both["tkzg"].g1_powers[:1]
+    for n in (4, 512, 1024, 16384):
+        lag = g * n
+        assert KZG(g, [], lag, device="cpu").uses_fixed_base() == jax_fb_enabled(n) == (n <= 512)
+        assert KZG(g, [], lag, device="cpu", fixed_base=True).uses_fixed_base()
+        assert not KZG(g, [], lag, device="cpu", fixed_base=False).uses_fixed_base()
+        assert _fb_enabled(n, torch.device("cuda"))
+    monkeypatch.setattr(pallas_field, "use_pallas", lambda: True)
+    assert jax_fb_enabled(16384)
+    tkzg = both["tkzg"]
+    assert not tkzg.uses_fixed_base() and tkzg._lagrange_fb is None
+    assert tkzg._lagrange_vb is not None
+
+
 def test_verifiers_accept_and_reject(both):
     from uzkge_tpu.plonk.verifier import verifier as jax_verifier
     from uzkge_tpu_torch.plonk.verifier import verifier
@@ -158,6 +204,9 @@ def test_gen_params_match_jax():
     t, j = tgp.load_srs(4096, "cpu"), jgp.load_srs(4096)
     assert t.g1_powers == j.g1_powers and t.g2_powers == j.g2_powers
     assert t.lagrange_n == j.lagrange_n == 4096
+    assert tgp.load_srs(4096, "cpu") is t and t.fixed_base is None
+    vb = tgp.load_srs(4096, "cpu", fixed_base=False)  # the route is part of the cache key
+    assert vb is not t and vb.fixed_base is False and not vb.uses_fixed_base()
 
 
 def test_build_cs_matches_jax():

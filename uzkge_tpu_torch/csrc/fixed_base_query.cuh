@@ -1,0 +1,133 @@
+// Per-lane arithmetic of the fixed-base query over BN254 G1 (the MSM over the
+// table of msm/fixed_base.py), as __host__ __device__ code on top of
+// fixed_base.cuh.
+//
+// The kernels of fixed_base_query.cu run one leaf, pair or group per thread
+// through these functions, thread t doing lane t; g++ compiles the same
+// functions for the CPU test suite (tests/test_torch_field.py), which holds
+// them against the JAX package's kernel bodies.  Elements are 8 x 32-bit little-endian limbs in
+// Fq Montgomery form; identity flags and pair flags are int32.
+#pragma once
+
+#include "fixed_base.cuh"
+
+// Pair flags of one level of the batch-affine tree, the TPU kernels' bits.
+#define FB_INF1 1  // the pair's first point is the identity
+#define FB_INF2 2  // its second point is the identity
+#define FB_BAD 4   // x1 == x2 with neither the identity: doubling or cancellation
+
+ZK_HD bool fp_is_zero(const uint32_t a[8]) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++) acc |= a[j];
+  return acc == 0;
+}
+
+// fb_select, leaf t = p * K + k of P MSMs: the table row of digit d =
+// digits[t], read from leaf k's own block of D rows (x || y, 16 words a row),
+// y negated for d < 0; inf = (d == 0).  A digit outside [-D, D] \ {0} reads
+// row 0 as the TPU's where-chain does (d = 0 carries row 0's values too).
+ZK_HD void fb_select_lane(const uint32_t *table, const int32_t *digits, uint32_t *x, uint32_t *y,
+                          int32_t *inf, long long t, long long K, int D) {
+  const int d = digits[t];
+  const int mag = d < 0 ? -d : d;
+  const uint32_t *row = table + ((size_t)(t % K) * D + (mag >= 1 && mag <= D ? mag - 1 : 0)) * 16;
+  uint32_t xv[8], yv[8];
+  ld_fp(xv, row);
+  ld_fp(yv, row + 8);
+  if (d < 0) fp_neg<Fq>(yv, yv);
+  st_fp(x + t * 8, xv);
+  st_fp(y + t * 8, yv);
+  inf[t] = d == 0;
+}
+
+// Pair t = p * H + j of a level over P MSMs of 2H points pairs point j of
+// MSM p with point j + H: the index of point j in the (P, 2H) arrays.
+ZK_HD long long fb_pair_first(long long t, long long H) { return t + (t / H) * H; }
+
+// fb_pair_den, pair t: den = x2 - x1, or 1 where a side is the identity or
+// x1 == x2 (so that the batch inversion stays valid), and the pair's flags.
+ZK_HD void fb_pair_den_lane(const uint32_t *x, const int32_t *inf, uint32_t *den, int32_t *flags,
+                            long long t, long long H) {
+  const long long i = fb_pair_first(t, H);
+  uint32_t a[8], b[8], d[8];
+  ld_fp(a, x + i * 8);
+  ld_fp(b, x + (i + H) * 8);
+  fp_sub<Fq>(d, b, a);
+  const bool i1 = inf[i] != 0, i2 = inf[i + H] != 0;
+  const bool bad = fp_is_zero(d) && !i1 && !i2;
+  if (i1 || i2 || bad)
+    for (int j = 0; j < 8; j++) d[j] = Fq::one(j);
+  st_fp(den + t * 8, d);
+  flags[t] = (i1 ? FB_INF1 : 0) | (i2 ? FB_INF2 : 0) | (bad ? FB_BAD : 0);
+}
+
+// fb_pair_combine, pair t: the affine sum with lambda = (y2 - y1) * dinv,
+// x3 = lambda^2 - x1 - x2, y3 = lambda * (x1 - x3) - y1.  The flags pass an
+// identity side through (P1 + O = P1, O + P2 = P2), and a degenerate pair
+// (x1 == x2) becomes the identity, keeping x3, y3 as computed: a doubling or
+// cancellation between SRS multiples needs a discrete-log relation and comes
+// by chance with probability ~2^-254.
+ZK_HD void fb_pair_combine_lane(const uint32_t *x, const uint32_t *y, const uint32_t *dinv,
+                                const int32_t *flags, uint32_t *xo, uint32_t *yo, int32_t *info,
+                                long long t, long long H) {
+  const long long i = fb_pair_first(t, H);
+  uint32_t x1[8], x2[8], y1[8], y2[8], lam[8], u[8], x3[8], y3[8];
+  ld_fp(x1, x + i * 8);
+  ld_fp(x2, x + (i + H) * 8);
+  ld_fp(y1, y + i * 8);
+  ld_fp(y2, y + (i + H) * 8);
+  ld_fp(u, dinv + t * 8);
+  fp_sub<Fq>(lam, y2, y1);
+  fp_mul<Fq>(lam, lam, u);
+  fp_mul<Fq>(u, lam, lam);
+  fp_sub<Fq>(u, u, x1);
+  fp_sub<Fq>(x3, u, x2);
+  fp_sub<Fq>(u, x1, x3);
+  fp_mul<Fq>(u, lam, u);
+  fp_sub<Fq>(y3, u, y1);
+  const int32_t f = flags[t];
+  const bool i1 = (f & FB_INF1) != 0, i2 = (f & FB_INF2) != 0, bad = (f & FB_BAD) != 0;
+  st_fp(xo + t * 8, i2 ? x1 : (i1 ? x2 : x3));
+  st_fp(yo + t * 8, i2 ? y1 : (i1 ? y2 : y3));
+  info[t] = (i1 && i2) || bad;
+}
+
+// fb_fold, one group: the halving tree over the W points a, a + s, ...,
+// a + (W - 1) s of the projective arrays X, Y, Z (element index, 8 words
+// each): level one adds point j and point j + W/2 of the group, and so on
+// down, by complete projective additions (RCB Alg. 7).  Its left half is the
+// tree over the group's even members, its right half over the odd ones, so
+// that G(a, s, W) = G(a, 2s, W/2) + G(a + s, 2s, W/2), left operand first as
+// in the TPU's _fold8_kernel.  W is 1, 2, 4 or 8.
+template <int W>
+ZK_HD void fb_fold_tree(G1Proj &out, const uint32_t *X, const uint32_t *Y, const uint32_t *Z,
+                        size_t a, size_t s) {
+  if constexpr (W == 1) {
+    ld_fp(out.x, X + a * 8);
+    ld_fp(out.y, Y + a * 8);
+    ld_fp(out.z, Z + a * 8);
+  } else {
+    G1Proj left;
+    fb_fold_tree<W / 2>(left, X, Y, Z, a, 2 * s);
+    fb_fold_tree<W / 2>(out, X, Y, Z, a + s, 2 * s);
+    g1_padd(out, left, out);
+  }
+}
+
+// fb_fold, group g of w consecutive points (w in {2, 4, 8}) into element g of
+// (oX, oY, oZ).
+ZK_HD void fb_fold_lane(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX,
+                        uint32_t *oY, uint32_t *oZ, size_t g, int w) {
+  G1Proj r;
+  const size_t a = g * (size_t)w;
+  if (w == 8)
+    fb_fold_tree<8>(r, X, Y, Z, a, 1);
+  else if (w == 4)
+    fb_fold_tree<4>(r, X, Y, Z, a, 1);
+  else
+    fb_fold_tree<2>(r, X, Y, Z, a, 1);
+  st_fp(oX + g * 8, r.x);
+  st_fp(oY + g * 8, r.y);
+  st_fp(oZ + g * 8, r.z);
+}

@@ -24,13 +24,14 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("ntt.cu", "msm.cu", "mont_mul.cu", "fixed_base.cu")
-HEADERS = ("field.cuh", "fixed_base.cuh")
+SOURCES = ("ntt.cu", "msm.cu", "mont_mul.cu", "fixed_base.cu", "fixed_base_query.cu")
+HEADERS = ("field.cuh", "fixed_base.cuh", "fixed_base_query.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 # launch counts per kernel: plain integers, reset by reset_launches()
 LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
-            "fp_mont_mul": 0, "fb_bases": 0, "fb_mult_chunk": 0, "fq_batch_inv": 0}
+            "fp_mont_mul": 0, "fb_bases": 0, "fb_mult_chunk": 0, "fq_batch_inv": 0,
+            "fb_select": 0, "fb_pair_den": 0, "fb_pair_combine": 0, "fb_fold": 0}
 
 _lib = None
 
@@ -55,6 +56,14 @@ _SIGNATURES = {
     "fq_inv_prefix_launch": [_P, _P, _P, _L, _L, _P],
     "fq_inv_roots_launch": [_P, _P, _L, _P],
     "fq_inv_back_launch": [_P, _P, _P, _P, _L, _L, _P],
+    # table, digits, x, y, inf, P, K, D, stream
+    "fb_select_launch": [_P] * 5 + [_L, _L, _I, _P],
+    # x, inf, den, flags, P, H, stream
+    "fb_pair_den_launch": [_P] * 4 + [_L, _L, _P],
+    # x, y, dinv, flags, xo, yo, info, P, H, stream
+    "fb_pair_combine_launch": [_P] * 7 + [_L, _L, _P],
+    # X, Y, Z, oX, oY, oZ, groups, w, stream
+    "fb_fold_launch": [_P] * 6 + [_L, _I, _P],
 }
 
 

@@ -1,11 +1,11 @@
-"""Fixed-base signed-window table over BN254 G1: the table build.
+"""Fixed-base signed-window table over BN254 G1: the table and its query.
 
-Counterpart of the set-up half of `uzkge_tpu/msm/fixed_base.py`
-(`FixedBaseTable.__init__`, `_build_bases`, `_build_chunk`,
-`pbatch_inv_fq`): for every window w < W = ceil(bits / c), base point i < n
-and digit d in [1, D = 2^(c-1)], the affine point d * 2^(c*w) * P_i, built
-once per SRS on the table's device.  The query (the MSM over the table) is
-not part of this module yet.
+Counterpart of `uzkge_tpu/msm/fixed_base.py::FixedBaseTable`: for every
+window w < W = ceil(bits / c), base point i < n and digit d in [1, D =
+2^(c-1)], the affine point d * 2^(c*w) * P_i, built once per SRS on the
+table's device (`__init__`, `_build_bases`, `_build_chunk`,
+`pbatch_inv_fq`); then every MSM over the n points is a query of the table
+(`msm_mont`, the TPU path `_msm_affine_impl`).
 
 Layout: leaf-major rows, row (w*n + i)*D + (d-1) holding x || y as 16 int32
 (64 B): a (K, D, 16) int32 tensor, K = W*n.  Byte for byte, that is the JAX
@@ -13,8 +13,7 @@ package's CPU table, (D*K, 32) uint16.  The TPU's vertical (D, 32, K) layout
 serves only its where-chain select and is not copied.
 
 The build is three hand-written CUDA kernels (csrc/fixed_base.cu) plus the
-elementwise product of ff/cuda_field.py, each beside its plain torch-op
-version in the same module:
+elementwise product of ff/cuda_field.py:
 
   * fb_bases: per base point, the doubling chain that emits the window bases
     B_w = 2^(c*w) * P_i, projective (the TPU's _bases_kernel);
@@ -26,22 +25,46 @@ version in the same module:
     for every size;
   * fp_mont_mul: x * z^-1 and y * z^-1.
 
-The group formulas are msm/msm.py's (`_padd_w`, `_madd_w`) in the plain
-versions and field.cuh's (`g1_padd`, `g1_madd`) in the kernels.
+A query of P MSMs (scalars (P, n, 8) Fr Montgomery) recodes the scalars into
+signed base-2^c digits (torch ops; fp_mont_mul takes them out of Montgomery
+form), then runs four more kernels (csrc/fixed_base_query.cu):
+
+  * fb_select: leaf k = w*n + i of MSM p reads its row |d| - 1 and negates y
+    for d < 0 (the TPU's _select_kernel, there a where-chain over the table);
+  * AFFINE_LEVELS levels of the batch-affine tree, each pairing leaf j with
+    leaf j + Kc/2 of its MSM: fb_pair_den (den = x2 - x1 and the pair flags;
+    _pair_den_kernel and its small variant), fq_batch_inv over the level's
+    dens (the TPU's pbatch_inv_fq_fast: _prefix_kernel, _invback_kernel,
+    _fermat_bits_kernel), fb_pair_combine (the affine sums;
+    _pair_combine_kernel and its small variant);
+  * fb_fold: projective 8-to-1 halving trees of complete additions down to
+    fewer than 8 points per MSM, then one halving tree over the rest
+    (_fold8_kernel and the XLA remainder), so that one projective point per
+    MSM reaches the host (`_extract_host`).
+
+Every kernel sits beside its plain torch-op version in this module; a CPU
+tensor takes the plain version, a CUDA tensor the kernel.  The group
+formulas are msm/msm.py's (`_padd_w`, `_madd_w`) in the plain versions and
+field.cuh's (`g1_padd`, `g1_madd`) in the kernels.  Unlike the TPU's fold,
+which keeps afield's lazy [0, 2p) values, every value here is canonical.
 """
 
 import numpy as np
 import torch
 
 from .. import kernels
+from ..constants.bn254 import Q_MOD
 from ..device import resolve
 from ..errors import ParameterError
 from ..ff.cuda_field import fp_mont_mul
-from ..ff.field import fq, lift, lower
+from ..ff.field import MASK32, fq, fr, lift, lower
+from ..ff.host_field import Fq
 from .msm import _madd_w, _padd_w
 
 INV_GROUP = 16  # elements per strided group of one batch-inversion level
 INV_ROOTS = 4096  # at most this many roots are inverted by Fermat
+AFFINE_LEVELS = 3  # batch-affine levels of a query, then projective folds
+INF1, INF2, BAD = 1, 2, 4  # pair flags: first / second point the identity; x1 == x2
 
 
 # ------------------------------------------------------------ plain versions
@@ -76,6 +99,61 @@ def fq_batch_inv_plain(a):
     """Torch-op version of the fq_batch_inv kernel: ff/field.py's batch
     inversion (prefix and suffix products, one Fermat inversion)."""
     return fq.batch_inv(a)
+
+
+def _select_rows(digits, D: int):
+    """Each digit's row in its leaf's block: |d| - 1, or row 0 for d = 0 and
+    for |d| > D (where the TPU's where-chain matches no row)."""
+    mag = digits.to(torch.int64).abs()
+    return torch.where((mag >= 1) & (mag <= D), mag - 1, 0)
+
+
+def fb_select_plain(digits, table):
+    """Torch-op version of the fb_select kernel."""
+    K, D = table.shape[:2]
+    rows = table[torch.arange(K, device=table.device)[None, :], _select_rows(digits, D)]
+    y = rows[..., 8:]
+    y = torch.where((digits < 0)[..., None], fq.neg(y), y)
+    return rows[..., :8].contiguous(), y.contiguous(), (digits == 0).to(torch.int32)
+
+
+def fb_pair_den_plain(x, inf):
+    """Torch-op version of the fb_pair_den kernel."""
+    H = inf.shape[1] // 2
+    X = lift(x)
+    den = fq.wsub(X[:, :, H:], X[:, :, :H])
+    i1, i2 = inf[:, :H] != 0, inf[:, H:] != 0
+    bad = (den == 0).all(0) & ~i1 & ~i2
+    den = torch.where(i1 | i2 | bad, fq.wconst(fq.const(1, x.device), 3), den)
+    flags = INF1 * i1.to(torch.int32) + INF2 * i2.to(torch.int32) + BAD * bad.to(torch.int32)
+    return lower(den), flags
+
+
+def fb_pair_combine_plain(x, y, dinv, flags):
+    """Torch-op version of the fb_pair_combine kernel."""
+    mul, sub = fq.wmul, fq.wsub
+    H = flags.shape[1]
+    X, Y = lift(x), lift(y)
+    x1, x2, y1, y2 = X[:, :, :H], X[:, :, H:], Y[:, :, :H], Y[:, :, H:]
+    lam = mul(sub(y2, y1), lift(dinv))
+    x3 = sub(sub(mul(lam, lam), x1), x2)
+    y3 = sub(mul(lam, sub(x1, x3)), y1)
+    i1, i2, bad = ((flags & f) != 0 for f in (INF1, INF2, BAD))
+    xo = torch.where(i2, x1, torch.where(i1, x2, x3))
+    yo = torch.where(i2, y1, torch.where(i1, y2, y3))
+    return lower(xo), lower(yo), ((i1 & i2) | bad).to(torch.int32)
+
+
+def fb_fold_plain(X, Y, Z, w: int):
+    """Torch-op version of the fb_fold kernel: the halving tree over each
+    group of w consecutive points, as `_fold8` and the remainder lay it out."""
+    P, Kc = X.shape[:2]
+    pts = [lift(t).reshape(8, P, Kc // w, w) for t in (X, Y, Z)]
+    while w > 1:
+        h = w // 2
+        pts = _padd_w(*(t[..., :h] for t in pts), *(t[..., h:] for t in pts))
+        w = h
+    return tuple(lower(t[..., 0]) for t in pts)
 
 
 # ------------------------------------------------------------- the kernels
@@ -162,6 +240,98 @@ def fq_batch_inv(a):
     return inv
 
 
+def _pairs(t, name: str):
+    """P and H of a (P, H) int32 tensor of identity flags or pair flags."""
+    if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 1:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want (P, H) with P, H >= 1")
+    return t.shape[0], t.shape[1]
+
+
+def fb_select(digits, table):
+    """Leaves of P MSMs over the table: digits (P, K) int32, leaf k = w*n + i;
+    table (K, D, 16).  Returns x, y (P, K, 8) affine Fq Montgomery, y negated
+    where d < 0, and inf (P, K) int32, 1 where d = 0 (whose x, y are row 0's,
+    as on the TPU)."""
+    if digits.dim() != 2 or table.dim() != 3:
+        raise ValueError("fb_select: want digits (P, K) and table (K, D, 16)")
+    (P, K), D, dev = digits.shape, table.shape[1], digits.device
+    kernels.check(digits, "digits", (P, K), dev)
+    kernels.check(table, "table", (K, D, 16), dev)
+    if P < 1 or K < 1 or D < 1:
+        raise ValueError(f"fb_select: P = {P}, K = {K}, D = {D}: all must be >= 1")
+    if not kernels.use_kernel(dev, "fb_select"):
+        return fb_select_plain(digits, table)
+    x, y = (torch.empty((P, K, 8), dtype=torch.int32, device=dev) for _ in range(2))
+    inf = torch.empty((P, K), dtype=torch.int32, device=dev)
+    kernels.launch("fb_select_launch", table.data_ptr(), digits.data_ptr(), x.data_ptr(),
+                   y.data_ptr(), inf.data_ptr(), P, K, D, kernels.stream_of(digits))
+    kernels.LAUNCHES["fb_select"] += 1
+    return x, y, inf
+
+
+def fb_pair_den(x, inf):
+    """First half of a batch-affine level over P MSMs of Kc points (x (P, Kc,
+    8), inf (P, Kc)), pairing point j with point j + H, H = Kc / 2: returns
+    den (P, H, 8), x2 - x1 or 1 where a side is the identity or x1 == x2, and
+    the flags (P, H) int32 (INF1 | INF2 | BAD)."""
+    P, Kc = _pairs(inf, "inf")
+    H, dev = Kc // 2, inf.device
+    if Kc % 2:
+        raise ValueError(f"fb_pair_den: Kc = {Kc} points per MSM, want an even count")
+    kernels.check(inf, "inf", (P, Kc), dev)
+    kernels.check(x, "x", (P, Kc, 8), dev)
+    if not kernels.use_kernel(dev, "fb_pair_den"):
+        return fb_pair_den_plain(x, inf)
+    den = torch.empty((P, H, 8), dtype=torch.int32, device=dev)
+    flags = torch.empty((P, H), dtype=torch.int32, device=dev)
+    kernels.launch("fb_pair_den_launch", x.data_ptr(), inf.data_ptr(), den.data_ptr(),
+                   flags.data_ptr(), P, H, kernels.stream_of(x))
+    kernels.LAUNCHES["fb_pair_den"] += 1
+    return den, flags
+
+
+def fb_pair_combine(x, y, dinv, flags):
+    """Second half of the level: the affine sums of the pairs given dinv =
+    den^-1 (P, H, 8) and the flags of fb_pair_den.  Returns xo, yo (P, H, 8)
+    and their identity flags (P, H)."""
+    P, H = _pairs(flags, "flags")
+    dev = flags.device
+    kernels.check(flags, "flags", (P, H), dev)
+    kernels.check(x, "x", (P, 2 * H, 8), dev)
+    kernels.check(y, "y", (P, 2 * H, 8), dev)
+    kernels.check(dinv, "dinv", (P, H, 8), dev)
+    if not kernels.use_kernel(dev, "fb_pair_combine"):
+        return fb_pair_combine_plain(x, y, dinv, flags)
+    xo, yo = (torch.empty((P, H, 8), dtype=torch.int32, device=dev) for _ in range(2))
+    info = torch.empty((P, H), dtype=torch.int32, device=dev)
+    kernels.launch("fb_pair_combine_launch", x.data_ptr(), y.data_ptr(), dinv.data_ptr(),
+                   flags.data_ptr(), xo.data_ptr(), yo.data_ptr(), info.data_ptr(), P, H,
+                   kernels.stream_of(x))
+    kernels.LAUNCHES["fb_pair_combine"] += 1
+    return xo, yo, info
+
+
+def fb_fold(X, Y, Z, w: int):
+    """Projective points (P, Kc, 8) each -> (P, Kc / w, 8) each: the halving
+    tree of complete additions over every group of w consecutive points, w in
+    {2, 4, 8}."""
+    if X.dim() != 3:
+        raise ValueError(f"fb_fold: X of shape {tuple(X.shape)}, want (P, Kc, 8)")
+    P, Kc, dev = X.shape[0], X.shape[1], X.device
+    for t, name in ((X, "X"), (Y, "Y"), (Z, "Z")):
+        kernels.check(t, name, (P, Kc, 8), dev)
+    if w not in (2, 4, 8) or P < 1 or Kc < w or Kc % w:
+        raise ValueError(f"fb_fold: P = {P}, Kc = {Kc}, w = {w}: want w in (2, 4, 8) "
+                         "dividing Kc >= w")
+    if not kernels.use_kernel(dev, "fb_fold"):
+        return fb_fold_plain(X, Y, Z, w)
+    out = tuple(torch.empty((P, Kc // w, 8), dtype=torch.int32, device=dev) for _ in range(3))
+    kernels.launch("fb_fold_launch", X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
+                   *(o.data_ptr() for o in out), P * (Kc // w), w, kernels.stream_of(X))
+    kernels.LAUNCHES["fb_fold"] += 1
+    return out
+
+
 # -------------------------------------------------------------- table build
 
 
@@ -184,6 +354,76 @@ def build_chunk(T, bax, bay, CH: int, rows):
     for E, half in ((EX, slice(0, 8)), (EY, slice(8, 16))):
         rows[..., half] = fp_mont_mul(fq, E.view(CH * K, 8), zinv).view(CH, K, 8).transpose(0, 1)
     return tuple(T)
+
+
+# ------------------------------------------------------------------- query
+
+
+def recode_digits(std, c: int, bits: int):
+    """(..., 8) standard-form limbs (values < 2^bits) -> (..., nd) int32
+    signed base-2^c digits, nd = ceil(bits / c), |d| <= 2^(c-1)
+    (`recode_digits`): digit k takes bits [k*c, (k+1)*c) plus the carry of
+    digit k - 1 and, above 2^(c-1), gives 2^c back as a carry.  The top digit
+    absorbs the last carry when bits % c <= c - 2, which c must allow."""
+    if 16 % c or bits % c > c - 2:
+        raise ParameterError(f"recode: c = {c}, bits = {bits}: want 16 % c == 0, bits % c <= c - 2")
+    nd, half, full = (bits + c - 1) // c, 1 << (c - 1), 1 << c
+    shifts = torch.arange(0, 32, c, device=std.device)
+    raw = (((std.to(torch.int64) & MASK32)[..., None] >> shifts) & (full - 1)).flatten(-2)
+    out = torch.empty(raw.shape[:-1] + (nd,), dtype=torch.int32, device=std.device)
+    carry = torch.zeros(raw.shape[:-1], dtype=torch.int64, device=std.device)
+    for k in range(nd):
+        v = raw[..., k] + carry
+        ge = v > half
+        out[..., k] = torch.where(ge, v - full, v)
+        carry = ge.to(torch.int64)
+    return out
+
+
+def scalars_to_digits(scalars, c: int, bits: int):
+    """(P, n, 8) Fr Montgomery -> (P, n, nd) signed digits
+    (`_scalars_to_digits`): out of Montgomery form by a product with 1 on
+    fp_mont_mul, then recode_digits."""
+    P, n = scalars.shape[:2]
+    flat = scalars.reshape(P * n, 8)
+    one = fr.const_raw(1, scalars.device).expand(P * n, 8).contiguous()
+    return recode_digits(fp_mont_mul(fr, flat, one).view(P, n, 8), c, bits)
+
+
+def affine_level(x, y, inf):
+    """One batch-affine level (`_affine_level`): P MSMs of Kc affine points
+    (x, y (P, Kc, 8), inf (P, Kc)) -> their Kc / 2 pairwise sums."""
+    P, Kc = inf.shape
+    den, flags = fb_pair_den(x, inf)
+    dinv = fq_batch_inv(den.view(P * (Kc // 2), 8)).view(den.shape)
+    return fb_pair_combine(x, y, dinv, flags)
+
+
+def to_projective(x, y, inf):
+    """Affine points and identity flags -> projective (X, Y, Z), the identity
+    as (0, 1, 0) (`_to_projective`)."""
+    one = fq.const(1, x.device)
+    isinf = (inf != 0)[..., None]
+    zero = torch.zeros((), dtype=torch.int32, device=x.device)
+    return (torch.where(isinf, zero, x), torch.where(isinf, one, y),
+            torch.where(isinf, zero, one.expand_as(x)))
+
+
+def _extract_host(X, Y, Z):
+    """(P, 8) projective sums, Fq Montgomery -> P host affine points (None =
+    the identity); the Zs share one inversion (`_extract_host`)."""
+    P = X.shape[0]
+    ints = fq.from_mont_limbs(torch.stack([X, Y, Z], 1).reshape(3 * P, 8))
+    zs = ints[2::3]
+    inv = iter(Fq.batch_inv([z for z in zs if z]) if any(zs) else [])
+    out = []
+    for i, z in enumerate(zs):
+        if z == 0:
+            out.append(None)
+        else:
+            zi = next(inv)
+            out.append((ints[3 * i] * zi % Q_MOD, ints[3 * i + 1] * zi % Q_MOD))
+    return out
 
 
 class FixedBaseTable:
@@ -217,6 +457,40 @@ class FixedBaseTable:
         self.table = torch.empty((K, D, 16), dtype=torch.int32, device=dev)
         for d0 in range(0, D, CH):  # each chunk's rows land in the table in place
             T = build_chunk(T, bax, bay, CH, self.table[:, d0 : d0 + CH])
+
+    def query(self, scalars):
+        """P MSMs over the table (`_msm_affine_impl`): scalars (P, n, 8) Fr
+        Montgomery on the table's device -> projective sums (X, Y, Z), each
+        (P, 8), on the device.  Any P in one call."""
+        P = scalars.shape[0] if scalars.dim() == 3 else 0
+        kernels.check(scalars, "scalars", (P, self.n, 8), self.device)
+        if P < 1:
+            raise ValueError("FixedBaseTable.query: want scalars (P, n, 8) with P >= 1")
+        digits = scalars_to_digits(scalars, self.c, self.bits)  # (P, n, W)
+        x, y, inf = fb_select(digits.transpose(1, 2).reshape(P, self.W * self.n), self.table)
+        Kc = self.W * self.n
+        for _ in range(AFFINE_LEVELS):
+            if Kc == 1:
+                break
+            x, y, inf = affine_level(x, y, inf)
+            Kc //= 2
+        X, Y, Z = to_projective(x, y, inf)
+        while Kc % 8 == 0:
+            X, Y, Z = fb_fold(X, Y, Z, 8)
+            Kc //= 8
+        if Kc > 1:  # the remainder, 2 or 4 points per MSM
+            X, Y, Z = fb_fold(X, Y, Z, Kc)
+        return X[:, 0], Y[:, 0], Z[:, 0]
+
+    def msm_mont(self, scalars):
+        """scalars (P, n, 8) Fr Montgomery -> a list of P host affine points
+        (None = the identity)."""
+        return _extract_host(*self.query(scalars))
+
+    def msm_ints(self, rows):
+        """P rows of n python-int scalars -> a list of P host affine points."""
+        flat = [s % fr.p for row in rows for s in row]
+        return self.msm_mont(fr.to_mont_limbs(flat, self.device).reshape(len(rows), self.n, 8))
 
 
 def fixed_base_table_from_jax(tbl, device=None) -> torch.Tensor:

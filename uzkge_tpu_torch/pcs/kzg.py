@@ -1,10 +1,11 @@
 """KZG polynomial commitments over BN254 with commits on torch tensors.
 
-Counterpart of `uzkge_tpu/pcs/kzg.py::KZG`, on its variable-base path:
-every commit is the Pippenger of msm/msm.py.  The fixed-base table over the
-Lagrange basis (`lagrange_fb_table`) is built here too; commits do not go
-through it yet.  Scheme semantics are the
-reference's (kzg_poly_commitment.rs / pcs.rs): Lagrange-basis commits plus
+Counterpart of `uzkge_tpu/pcs/kzg.py::KZG`.  Lagrange-basis commits go
+through the fixed-base table over the Lagrange basis (`lagrange_fb_table`,
+msm/fixed_base.py) where `_fb_enabled` says so, as in the JAX package, and
+through the Pippenger of msm/msm.py otherwise; the `fixed_base` argument
+overrides the rule.  Coefficient-basis commits use the Pippenger.  Scheme
+semantics are the reference's (kzg_poly_commitment.rs / pcs.rs): Lagrange-basis commits plus
 `apply_blind_factors`, coefficient-basis commits over the contiguous SRS
 prefix, the batch_prove alpha-combination and one multi-pairing check.
 Opening arithmetic and pairings stay on the host (native_host, pcs/pairing).
@@ -28,6 +29,14 @@ from ..utils.transcript import Transcript
 from .pairing import multi_pairing_is_one
 
 
+def _fb_enabled(n: int, device: torch.device) -> bool:
+    """Whether Lagrange commits over n bases go through the fixed-base table:
+    always on the card, on the CPU only up to n = 512, where the table is
+    cheap to build with the plain versions (the JAX package's rule,
+    uzkge_tpu/pcs/kzg.py::_fb_enabled, without its environment override)."""
+    return device.type == "cuda" or n <= 512
+
+
 def _fb_window(n: int) -> int:
     """Window width c of the fixed-base table over n bases, the JAX package's
     rule (uzkge_tpu/pcs/kzg.py::_fb_window), kept for parity of the window:
@@ -42,11 +51,14 @@ def _fb_window(n: int) -> int:
 
 class KZG:
     """SRS container + commitment operations; device structures on `device`
-    (the card unless the caller passes another)."""
+    (the card unless the caller passes another).  `fixed_base` routes the
+    Lagrange commits: True through the fixed-base table, False through the
+    Pippenger, None (the default) by `_fb_enabled`."""
 
     def __init__(self, g1_powers: List, g2_powers: List, lagrange_bases: Optional[List] = None,
-                 device=None):
+                 device=None, fixed_base: Optional[bool] = None):
         self.device = resolve(device)
+        self.fixed_base = fixed_base
         self.g1_powers = g1_powers  # affine points; None marks SRS padding gaps
         self.g2_powers = g2_powers  # [G2, s*G2]
         contig = 0
@@ -60,7 +72,7 @@ class KZG:
 
     @staticmethod
     def setup_insecure(max_degree: int, tau: int, domain_n: Optional[int] = None,
-                       device=None) -> "KZG":
+                       device=None, fixed_base: Optional[bool] = None) -> "KZG":
         """Dev/test SRS with a known tau, optionally with Lagrange bases over a
         size-n domain (reference `KZGCommitmentScheme::new`, kzg:183-204)."""
         g1 = [g1_mul((1, 2), pow(tau, i, R_MOD)) for i in range(max_degree + 1)]
@@ -78,7 +90,7 @@ class KZG:
                 li = wi * n_inv % R_MOD * zt % R_MOD * pow((tau - wi) % R_MOD, R_MOD - 2, R_MOD) % R_MOD
                 lagrange.append(g1_mul((1, 2), li))
                 wi = wi * w % R_MOD
-        return KZG(g1, g2, lagrange, device=device)
+        return KZG(g1, g2, lagrange, device=device, fixed_base=fixed_base)
 
     def set_lagrange(self, lagrange_bases: List):
         self._lagrange_points = lagrange_bases
@@ -102,6 +114,12 @@ class KZG:
                                                c=_fb_window(self._lagrange_n), device=self.device)
         return self._lagrange_fb
 
+    def uses_fixed_base(self) -> bool:
+        """Whether Lagrange commits go through lagrange_fb_table()."""
+        if self.fixed_base is not None:
+            return self.fixed_base
+        return _fb_enabled(self.lagrange_n, self.device)
+
     def _coef_msm_bases(self):
         if self._coef_bases is None:
             self._coef_bases = MSMBases(self.g1_powers[: self.max_contig], self.device)
@@ -123,10 +141,16 @@ class KZG:
         """Lagrange-basis commits of a (P, n, 8) batch of Montgomery
         evaluations on the device -> list of host affine points."""
         assert self._lagrange is not None
-        batch = evals if evals.dim() == 3 else evals[None]
+        batch = (evals if evals.dim() == 3 else evals[None]).contiguous()
+        if self.uses_fixed_base():
+            return self.lagrange_fb_table().msm_mont(batch)
         if self._lagrange_vb is None:
             self._lagrange_vb = MSMBases(self._lagrange_points, self.device)
         return msm(self._lagrange_vb, batch)
+
+    def commit_evals(self, evals):
+        """Lagrange-basis commit of one (n, 8) vector of evaluations."""
+        return self.commit_evals_batch(evals[None] if evals.dim() == 2 else evals)[0]
 
     def apply_blind_factors(self, cm, blinds: List[int], zeroing_degree: int):
         """cm + sum_i b_i * (G_i - G_{zeroing+i}) (kzg:299-313)."""
