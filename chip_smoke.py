@@ -26,7 +26,12 @@ Phases, any failure exits nonzero:
      3 MSMs (fb_select, fb_pair_den and fb_pair_combine with identity and
      x1 == x2 pairs planted, fq_batch_inv at the level's size, fb_fold at
      widths 8 and 2), each against its plain version, and a whole msm_mont
-     against the host Pippenger;
+     against the host Pippenger; on the same 256 points the chain MSM's
+     kernels for P = 3 rows (an all-zero row and a run of zero digits
+     planted): the chain build (fb_bases at W = 256, c = 1, fq_batch_inv,
+     fp_mont_mul), scan_leaf_reduce and every scan_proj_reduce round, each
+     against its plain version, and msm_chain's points against the host
+     Pippenger's and the table query's;
   4. the main path: gen_shuffle_prover_params(52), whose set-up now builds
      the fixed-base table (fb_bases and fb_mult_chunk must be launched), the
      public-key refresh for a seeded joint key, prove_shuffle with
@@ -48,14 +53,33 @@ Phases, any failure exits nonzero:
      n = 16384, K = 524,288 leaves per MSM), every kernel at every level
      against its plain version, timed beside it (fb_select also beside
      PyTorch's own gather of the same rows), and the whole query's points
-     against the variable-base Pippenger's on the same scalars;
-  6. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
+     against the variable-base Pippenger's on the same scalars; then
+     msm_chain at the same shape (P = 8 dense rows, n = 16384: 2^21 leaves
+     per MSM; one leaf round with S = 32, projective rounds with S = 32,
+     32, 32, 2), the chain build and every round against its plain version,
+     timed beside it, its points against the query's, its whole call timed
+     beside the query's;
+  6. the sharded path (parallel/), this slice's main path: an NCCL process
+     group of world size 1 over a FileStore in a temporary directory (the
+     collectives run on the card at that size); sharded_msm_device_sums and
+     sharded_msm_batch at n = 16384, P = 8 against msm_chain's points,
+     sharded_ntt_batch on the prover's coset batch (5 x 131072) and
+     ShardedNTT at n = 2^17 (fft, ifft, coset fft / ifft) against NTTDomain,
+     dryrun_multichip with its one-card shuffle proof through the group; then the 52-card proof of phase 4 again, on its
+     prover params and rng state, through a KZG on the group: every Lagrange
+     commit through the sharded msm_chain, the batched NTTs through
+     sharded_ntt_batch; the same sha256, both scan kernels launched, neither
+     the table nor the Pippenger used; its stage times beside the
+     fixed-base proof's;
+  7. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
      bound worked out from this run's shapes and what bounds it, and the time
      of one PyTorch call computing the same function where there is one:
      only fb_select's gather; no PyTorch call computes a BN254 NTT, MSM,
      table or group addition), the card line, and last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
+The scan kernels' times are per msm_chain call of P = 8 MSMs, scan_proj_reduce
+summed over its four rounds; their launches are the group proof's.
 The query kernels' times are per query of P = 8 MSMs, summed over its
 levels (each level's time is logged): AFFINE_LEVELS batch-affine levels
 (fb_pair_den, fq_batch_inv, fb_pair_combine) and five 8-to-1 folds plus the
@@ -702,7 +726,8 @@ def main_path(dev, golden):
     default), then again on the same prover params through a fixed_base=False
     KZG; `golden` is its record in torch_golden.json (the seed the JAX
     package used and its proof's sha256).  Returns the launches of the
-    fixed-base proof and of the variable-base proof."""
+    fixed-base proof and of the variable-base proof, and what group_proof
+    needs to repeat the proof (prover params, table, rng state, stages)."""
     from uzkge_tpu_torch import kernels
     from uzkge_tpu_torch.gen_params import load_srs
     from uzkge_tpu_torch.plonk.indexer import refresh_prover_params_public_key
@@ -756,7 +781,9 @@ def main_path(dev, golden):
     for name in ("latency",) + STAGES:
         a, b = (latency, latency_vb) if name == "latency" else (stages[name], stages_vb[name])
         log(f"{name:24s} {a:12.4f} {b:14.4f}")
-    return launches, launches_vb
+    ctx = {"pp": pp, "joint": joint, "deck": deck, "state": state, "latency": latency,
+           "stages": stages}
+    return launches, launches_vb, ctx
 
 
 def check_query_full(dev, tbl, rate, errs, rng):
@@ -850,6 +877,212 @@ def check_query_full(dev, tbl, rate, errs, rng):
     return res, query_ms
 
 
+# ------------------------------------------------------------ chain MSM
+
+GROUP_KERNELS = ("ntt_pass", "fp_mont_mul", "fb_bases", "fq_batch_inv", "scan_leaf_reduce",
+                 "scan_proj_reduce")  # the proof through a KZG on a process group
+OTHER_ROUTES = ("fb_select", "msm_bucket_accumulate")
+
+
+def chain_rounds(errs, x, y, sc, shape_tag, rate=None):
+    """msm_chain's kernels on (x, y, sc), each against its plain version on
+    the same inputs and timed beside it (CUDA events, mean of 3): the chain
+    build (fb_bases, fq_batch_inv, fp_mont_mul), the leaf round, every
+    projective round.  Returns the per-kernel rows (times, bytes and
+    products summed over the rounds; bounds where `rate` is given) and the
+    chain MSM's output (X, Y, Z)."""
+    from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul_plain
+    from uzkge_tpu_torch.ff.field import fq
+    from uzkge_tpu_torch.msm import fixed_base as fb
+
+    P, n = sc.shape[:2]
+    W = 128  # msm_chain's windows: c = 2, bits = 256
+    K = W * n
+
+    def chain_plain():
+        BX, BY, BZ = fb.fb_bases_plain(x, y, 2 * W, 1)
+        zinv = fb.fq_batch_inv_plain(BZ)
+        return fp_mont_mul_plain(fq, BX, zinv), fp_mont_mul_plain(fq, BY, zinv)
+
+    (ax, ay), ms, pms = compare(errs, "chain", f"{shape_tag} n={n} W=256 c=1",
+                                lambda: fb.build_bases(x, y, 2 * W, 1), chain_plain)
+    log(f"chain build (fb_bases, fq_batch_inv, fp_mont_mul) n={n}: {ms:.4f} ms, plain {pms:.4f} ms")
+    d = fb.scalars_to_digits(sc, 2, 256).transpose(1, 2).reshape(P, K).contiguous()
+    S = fb.pick_s(K)
+    shape = f"P={P} K={K} S={S}"
+    (X, Y, Z), ms, pms = compare(errs, "scan_leaf_reduce", shape,
+                                 lambda: fb.scan_leaf_reduce(ax, ay, d, n, S),
+                                 lambda: fb.scan_leaf_reduce_plain(ax, ay, d, n, S))
+    nz = d != 0
+    rows = torch.unique(fb.chain_rows(d, n)[nz]).numel()  # chain rows the leaves need
+    lanes = P * (K // S)
+    # one mixed addition per nonzero leaf; its digit and its chain row read, a lane written
+    res = {"scan_leaf_reduce": {"ms": ms, "plain_ms": pms, "shape": shape,
+                                "bytes": 4 * P * K + 64 * rows + 96 * lanes,
+                                "products": MADD_PRODUCTS * int(nz.sum())}}
+    proj = {"ms": 0.0, "plain_ms": 0.0, "shape": [], "bytes": 0, "products": 0}
+    per = K // S
+    while per > 1:
+        S = fb.pick_s(per)
+        N = X.shape[0]
+        shape = f"N={N} S={S}"
+        (X, Y, Z), ms, pms = compare(errs, "scan_proj_reduce", shape,
+                                     lambda: fb.scan_proj_reduce(X, Y, Z, S),
+                                     lambda: fb.scan_proj_reduce_plain(X, Y, Z, S))
+        proj["ms"] += ms
+        proj["plain_ms"] += pms
+        proj["shape"].append(shape)
+        proj["bytes"] += 96 * (N + N // S)
+        proj["products"] += PADD_PRODUCTS * (N - N // S)  # S - 1 additions per output
+        per //= S
+    proj["shape"] = "; ".join(proj["shape"])
+    res["scan_proj_reduce"] = proj
+    if rate is not None:
+        for name, r in res.items():
+            r.update(bound(r.pop("bytes"), r.pop("products"), rate), max_abs_err=errs[name])
+            log(f"{name} per msm_chain: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res, (X, Y, Z)
+
+
+def check_chain_small(dev, tbl, errs, rng):
+    """The chain MSM's kernels at n = 256, P = 3 on the n = 256 table's points
+    (the first 256 Lagrange bases), with an all-zero scalar row and a run of
+    zero digits planted, each against its plain version; then msm_chain's
+    points against the host Pippenger's and the fixed-base query's."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.msm import fixed_base as fb
+    from uzkge_tpu_torch.msm.msm import host_msm
+
+    P, n = 3, tbl.n
+    rows = [[0] * n] + [[rng.randrange(R_MOD) for _ in range(n)] for _ in range(P - 1)]
+    rows[1][:16] = [0] * 16  # 16 points' 128 windows: zero digits
+    rows[2][0] = R_MOD - 1
+    sc = fr.to_mont_limbs([v for row in rows for v in row], dev).reshape(P, n, 8)
+    x, y = fq_rows(tbl.points, dev)
+    _, (X, Y, Z) = chain_rounds(errs, x, y, sc, "small")
+    got = fb._extract_host(X, Y, Z)
+    if got != fb._extract_host(*fb.msm_chain(x, y, sc)):
+        raise AssertionError("msm_chain disagrees with its rounds run one by one")
+    if got != [host_msm(tbl.points, r) for r in rows] or got != tbl.msm_mont(sc) or got[0] is not None:
+        raise AssertionError("msm_chain (n = 256, P = 3) disagrees with the host Pippenger or the "
+                             "fixed-base query")
+    log(f"msm_chain n={n} P={P}: kernels == plain, points == host Pippenger == fixed-base query")
+
+
+def check_chain_full(dev, tbl, rate, errs, query_ms):
+    """msm_chain at r1_commit's batch (P = 8 dense rows, n = 16384): every
+    round against its plain version, timed; its points against the
+    fixed-base query's on the same scalars; the whole call timed beside the
+    query's (`query_ms`, same scalars' shape).  Returns the kernel rows, the
+    scalars and the points."""
+    from uzkge_tpu_torch.msm import fixed_base as fb
+
+    P, n = 8, tbl.n
+    sc = random_fr(P * n, dev).view(P, n, 8)
+    x, y = fq_rows(tbl.points, dev)
+    res, (X, Y, Z) = chain_rounds(errs, x, y, sc, "full", rate)
+    chain_ms, out = cuda_ms(lambda: fb.msm_chain(x, y, sc), reps=3)
+    got = fb._extract_host(*out)
+    if got != fb._extract_host(X, Y, Z) or got != tbl.msm_mont(sc) or None in got:
+        raise AssertionError("msm_chain (n = 16384, P = 8) disagrees with the fixed-base query")
+    log(f"msm_chain P={P} n={n}: {chain_ms:.4f} ms on the card (chain build, digits, rounds; "
+        f"mean of 3) against the fixed-base query's {query_ms:.4f} ms; points equal")
+    return res, sc, got
+
+
+def check_sharded(dev, group, tbl, sc, want):
+    """The sharded path on an NCCL group of world size 1: both MSM axes at n
+    = 16384, P = 8 against msm_chain's points `want`; sharded_ntt_batch on
+    the prover's coset batch (5 x 131072, the 52-card k1) and ShardedNTT at n
+    = 2^17 (fft, ifft, coset fft / ifft) against NTTDomain; the tiny-shape
+    dry run with its one-card proof."""
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.gen_params import load_shuffle_verifier_params
+    from uzkge_tpu_torch.msm.fixed_base import _extract_host
+    from uzkge_tpu_torch.ntt.ntt import NTTDomain
+    from uzkge_tpu_torch.parallel import sharded as sh
+
+    x, y = fq_rows(tbl.points, dev)
+    for name, fn in (("sharded_msm_device_sums", sh.sharded_msm_device_sums),
+                     ("sharded_msm_batch", sh.sharded_msm_batch)):
+        ms, out = cuda_ms(lambda: fn(group, x, y, sc), reps=1)
+        if _extract_host(*out) != want:
+            raise AssertionError(f"{name} (world size 1) disagrees with msm_chain")
+        log(f"{name} n={tbl.n} P={sc.shape[0]}: {ms:.4f} ms, points == msm_chain's")
+    k1 = load_shuffle_verifier_params(52).k[1]
+    m = 131072
+    batch = random_fr(5 * m, dev).view(5, m, 8)
+    dom = NTTDomain(m, dev)
+    ms, out = cuda_ms(lambda: sh.sharded_ntt_batch(group, batch, coset_k=k1), reps=1)
+    if not torch.equal(out, dom.coset_fft_batch(batch, k1)):
+        raise AssertionError("sharded_ntt_batch disagrees with NTTDomain.coset_fft_batch")
+    log(f"sharded_ntt_batch (5 x {m}, coset k1): {ms:.4f} ms, == NTTDomain")
+    sntt, v = sh.ShardedNTT(m, group), batch[0].contiguous()
+    for name, got, ref in (("fft", sntt.fft(v), dom.fft(v)), ("ifft", sntt.ifft(v), dom.ifft(v)),
+                           ("coset_fft", sntt.coset_fft(v, k1), dom.coset_fft(v, k1)),
+                           ("coset_ifft", sntt.coset_ifft(v, k1), dom.coset_ifft(v, k1))):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"ShardedNTT.{name} (n = {m}) disagrees with NTTDomain")
+    log(f"ShardedNTT n={m}: fft, ifft, coset fft / ifft == NTTDomain")
+    t0 = time.perf_counter()
+    if not sh.dryrun_multichip(group, prove=True):
+        raise AssertionError("dryrun_multichip failed")
+    log(f"dryrun_multichip (world size 1): sharded MSMs and NTTs == host math, a one-card "
+        f"shuffle proof through a KZG on the group verifies; {time.perf_counter() - t0:.3f} s")
+
+
+def group_proof(dev, group, golden, ctx):
+    """This slice's main path: the seeded 52-card proof on phase 4's prover
+    params through a KZG on `group` (every Lagrange commit through the
+    sharded msm_chain, the batched NTTs through sharded_ntt_batch), from the
+    rng state of the fixed-base proof; the same sha256, both scan kernels
+    launched, the table and the Pippenger not used.  Returns its launches."""
+    from uzkge_tpu_torch.gen_params import load_srs
+    from uzkge_tpu_torch.plonk.proof_io import proof_to_bytes_be
+    from uzkge_tpu_torch.shuffle import app
+
+    pp, joint, deck = ctx["pp"], ctx["joint"], ctx["deck"]
+    kzg = load_srs(pp.n, dev, group=group)
+    rng = random.Random()
+    rng.setstate(ctx["state"])
+    proof, _, latency, launches, stages = prove_timed(app, rng, joint, deck, pp, kzg, "group")
+    check_digest(proof_to_bytes_be(proof), golden, "group")
+    missing = [k for k in GROUP_KERNELS if launches[k] <= 0]
+    if missing or any(launches[k] for k in OTHER_ROUTES) or kzg._lagrange_fb is not None:
+        raise AssertionError(f"the group proof launched no {missing} or used another route")
+    log(f"{'stage (s)':24s} {'fixed-base':>12s} {'group':>12s}")
+    for name in ("latency",) + STAGES + ("r1_ifft", "r3_coset_ffts"):
+        a, b = ((ctx["latency"], latency) if name == "latency"
+                else (ctx["stages"].get(name, 0.0), stages.get(name, 0.0)))
+        log(f"{name:24s} {a:12.4f} {b:12.4f}")
+    return launches
+
+
+def sharded_path(dev, golden, ctx, tbl, sc, want):
+    """An NCCL process group of world size 1 over a FileStore in a temporary
+    directory: check_sharded, then group_proof; the group is destroyed and
+    the directory removed after.  Returns the group proof's launches."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from uzkge_tpu_torch.parallel import start_group
+
+    tmp = tempfile.mkdtemp(prefix="uzkge-nccl-")
+    try:
+        group = start_group(tmp, 0, 1, "nccl", timeout_s=300)
+        log(f"NCCL group: world size 1, FileStore in the temporary directory {tmp}")
+        check_sharded(dev, group, tbl, sc, want)
+        return group_proof(dev, group, golden, ctx)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this smoke run needs one", file=sys.stderr)
@@ -878,17 +1111,22 @@ def main():
     errs = {}
     small = check_fixed_base_small(dev, load_srs(16384, dev)._lagrange_points, errs)
     check_query_small(dev, small, errs, rng)
+    check_chain_small(dev, small, errs, rng)
     del small
 
-    launches, launches_vb = main_path(dev, golden)
+    launches, launches_vb, ctx = main_path(dev, golden)
     tbl, fb_launches = fixed_base_path(dev, rng)
     fbres = check_fixed_base_full(dev, tbl, rate, errs)
-    qres, _ = check_query_full(dev, tbl, rate, errs, rng)
+    qres, query_ms = check_query_full(dev, tbl, rate, errs, rng)
+    chain, sc, want = check_chain_full(dev, tbl, rate, errs, query_ms)
+    group_launches = sharded_path(dev, golden, ctx, tbl, sc, want)
     launches.update({k: launches_vb[k] for k in VB_KERNELS})
     launches.update({k: fb_launches[k] for k in SETUP_KERNELS})
+    launches.update({k: group_launches[k] for k in ("scan_leaf_reduce", "scan_proj_reduce")})
 
     fb_src = "uzkge_tpu_torch/csrc/fixed_base.cu"
     q_src = "uzkge_tpu_torch/csrc/fixed_base_query.cu"
+    s_src = "uzkge_tpu_torch/csrc/scan_reduce.cu"
     jfb = "uzkge_tpu/msm/fixed_base.py"
     rows = [
         ("ntt_pass", "uzkge_tpu_torch/csrc/ntt.cu", "uzkge_tpu/ntt/pallas_ntt.py:87", ntt),
@@ -905,6 +1143,8 @@ def main():
         ("fb_pair_den", q_src, f"{jfb}:630,737", qres["fb_pair_den"]),
         ("fb_pair_combine", q_src, f"{jfb}:652,757", qres["fb_pair_combine"]),
         ("fb_fold", q_src, f"{jfb}:680", qres["fb_fold"]),
+        ("scan_leaf_reduce", s_src, f"{jfb}:195", chain["scan_leaf_reduce"]),
+        ("scan_proj_reduce", s_src, f"{jfb}:215", chain["scan_proj_reduce"]),
     ]
     out = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

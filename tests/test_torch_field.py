@@ -4,13 +4,15 @@ Two layers are held against the reference here, exactly (field arithmetic
 has no rounding):
   * uzkge_tpu_torch/ff/field.py, the torch-op field (the plain version that
     the CPU runs), against uzkge_tpu/ff/jax_field.py::fr_ctx / fq_ctx;
-  * uzkge_tpu_torch/csrc/field.cuh, csrc/fixed_base.cuh and
-    csrc/fixed_base_query.cuh, the kernels' own arithmetic, compiled with g++
-    into a small ctypes harness, against fq_ctx / fr_ctx, the host curve
-    arithmetic of uzkge_tpu/curve/bn254.py, the fixed-base group chains and
-    batch inversion of the JAX package (msm/fixed_base.py's padd_g / madd_g,
-    ff/vfield.py's batch_inv), and the JAX query kernels' bodies (the select,
-    the pair den / combine with their flags, the projective fold).
+  * uzkge_tpu_torch/csrc/field.cuh, csrc/fixed_base.cuh,
+    csrc/fixed_base_query.cuh and csrc/scan_reduce.cuh, the kernels' own
+    arithmetic, compiled with g++ into a small ctypes harness, against fq_ctx
+    / fr_ctx, the host curve arithmetic of uzkge_tpu/curve/bn254.py, the
+    fixed-base group chains and batch inversion of the JAX package
+    (msm/fixed_base.py's padd_g / madd_g, ff/vfield.py's batch_inv), the JAX
+    query kernels' bodies (the select, the pair den / combine with their
+    flags, the projective fold), and the chain MSM's scan steps (_leaf_step,
+    _proj_step, _tree_combine) in the scan kernels' order.
 Inputs come from numpy with a fixed seed plus the edge values 0, 1, p-1 and
 values near 2^254.
 """
@@ -91,6 +93,7 @@ def test_field_codecs_match_jax(name, p, jctx, tctx):
 
 _HARNESS = r"""
 #include "fixed_base_query.cuh"
+#include "scan_reduce.cuh"
 extern "C" {
 #define BIN(name, F, fn) \
   void name(uint32_t *r, const uint32_t *a, const uint32_t *b, int n) { \
@@ -150,6 +153,12 @@ void fb_pair_combine_n(const uint32_t *x, const uint32_t *y, const uint32_t *din
 void fb_fold_n(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX, uint32_t *oY,
                uint32_t *oZ, long long groups, int w) {
   for (long long g = 0; g < groups; g++) fb_fold_lane(X, Y, Z, oX, oY, oZ, (size_t)g, w); }
+void scan_leaf_n(const uint32_t *ax, const uint32_t *ay, const int32_t *digits, uint32_t *ox,
+                 uint32_t *oy, uint32_t *oz, long long P, long long K, long long n, int S) {
+  for (long long t = 0; t < P * (K / S); t++) scan_leaf_lane(ax, ay, digits, ox, oy, oz, t, K, n, S); }
+void scan_proj_n(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX, uint32_t *oY,
+                 uint32_t *oZ, long long lanes, int S) {
+  for (long long t = 0; t < lanes; t++) scan_proj_lane(X, Y, Z, oX, oY, oZ, t, S); }
 }
 """
 
@@ -181,6 +190,8 @@ def header_lib(tmp_path_factory):
     lib.fb_pair_den_n.argtypes = [ctypes.c_void_p] * 4 + [ll, ll]
     lib.fb_pair_combine_n.argtypes = [ctypes.c_void_p] * 7 + [ll, ll]
     lib.fb_fold_n.argtypes = [ctypes.c_void_p] * 6 + [ll, ctypes.c_int]
+    lib.scan_leaf_n.argtypes = [ctypes.c_void_p] * 6 + [ll, ll, ll, ctypes.c_int]
+    lib.scan_proj_n.argtypes = [ctypes.c_void_p] * 6 + [ll, ctypes.c_int]
     return lib
 
 
@@ -458,3 +469,57 @@ def test_query_fold_header_matches_jax(header_lib, w):
         got = tf.limbs_to_ints(o.view(np.int32))
         ref = tf.limbs_to_ints(_from_jv(wv).view(np.int32))
         assert [v % Q_MOD for v in got] == [v % Q_MOD for v in ref] and max(got) < Q_MOD
+
+
+# ------------------------------------------- the chain MSM's scan arithmetic
+
+
+def _il2_scan(step, S, like):
+    """The scan kernels' order over vfq: two running sums from the identity,
+    step s into sum s % 2, then _tree_combine."""
+    from uzkge_tpu.ff.vfield import vfq
+    from uzkge_tpu.msm.fixed_base import _identity, _tree_combine
+
+    accs = [_identity(vfq, like) for _ in range(2)]
+    for s in range(S):
+        accs[s % 2] = step(vfq, accs[s % 2], s)
+    return _tree_combine(vfq, accs)
+
+
+def test_scan_lanes_match_jax(header_lib):
+    """scan_reduce.cuh's lanes, compiled by g++, against the JAX package's
+    _leaf_step and _proj_step over vfq in the scan kernels' order: the leaf
+    lane reads its chain rows by digit (P = 2, n = 4, W = 4, S = 8, a lane
+    of zero digits), the projective lane sums S = 4 consecutive points."""
+    from uzkge_tpu.msm.fixed_base import _leaf_step, _proj_step
+
+    P, n, W, S = 2, 4, 4, 8
+    K = W * n
+    lanes = P * K // S
+    rs = np.random.default_rng(34)
+    ax, ay = _q_vals(rs, (2 * K,)), _q_vals(rs, (2 * K,))
+    digits = np.ascontiguousarray(rs.integers(-2, 3, size=(P, K)).astype(np.int32))
+    digits[1, :S] = 0
+    out = [np.zeros((lanes, 8), np.uint32) for _ in range(3)]
+    header_lib.scan_leaf_n(_p(ax), _p(ay), _p(digits), *(_p(o) for o in out), P, K, n, S)
+    k = np.arange(K)
+    rows = (2 * (k // n) + np.maximum(np.abs(digits) - 1, 0)) * n + k % n  # (P, K)
+    def lay(a):  # [s, p*J + j] = leaf j*S + s of MSM p
+        return np.ascontiguousarray(np.swapaxes(a.reshape((lanes, S) + a.shape[2:]), 0, 1))
+
+    gx, gy, d = lay(ax[rows]), lay(ay[rows]), lay(digits)
+    want = _il2_scan(lambda f, acc, s: _leaf_step(f, acc, _jv(gx[s]), _jv(gy[s]), d[s]), S,
+                     _jv(gx[0]))
+    for o, wv in zip(out, want):
+        assert (o == _from_jv(wv)).all()
+    assert _from_jv(want[2])[lanes // 2].tolist() == [0] * 8  # the zero-digit lane
+
+    S, lanes = 4, 6
+    X, Y, Z = (_q_vals(rs, (lanes * S,)) for _ in range(3))
+    out = [np.zeros((lanes, 8), np.uint32) for _ in range(3)]
+    header_lib.scan_proj_n(_p(X), _p(Y), _p(Z), *(_p(o) for o in out), lanes, S)
+    cols = [t.reshape(lanes, S, 8) for t in (X, Y, Z)]
+    want = _il2_scan(lambda f, acc, s: _proj_step(f, acc, *(_jv(c[:, s]) for c in cols)), S,
+                     _jv(cols[0][:, 0]))
+    for o, wv in zip(out, want):
+        assert (o == _from_jv(wv)).all()

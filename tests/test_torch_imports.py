@@ -87,8 +87,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "uzkge_tpu"), (path, mod)
     assert {m.name for m in pkgutil.iter_modules([PORT])} >= {
-        "constants", "curve", "ff", "hash", "msm", "ntt", "pcs", "plonk", "shuffle", "utils",
-        "errors", "native_host", "gen_params", "device", "kernels"}
+        "constants", "curve", "ff", "hash", "msm", "ntt", "parallel", "pcs", "plonk", "shuffle",
+        "utils", "errors", "native_host", "gen_params", "device", "kernels"}
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -116,9 +116,15 @@ def test_indexer_host_parts_match_jax(both):
 
 
 def test_proof_bytes_match_jax(both):
+    """Also holds the golden digest "add64" (tests/data/torch_golden.json),
+    against which tests/test_torch_sharded.py checks the group-routed proof,
+    to the JAX package's bytes."""
+    import hashlib
+
     tb = proof_to_bytes_be(both["tproof"])
     jb = jax_proof_to_bytes_be(both["jproof"])
     assert len(tb) == len(jb) and tb == jb
+    assert hashlib.sha256(jb).hexdigest() == json.load(open(GOLDEN))["add64"]["sha256"]
 
 
 def test_fixed_base_proof_bytes_match_jax(both):

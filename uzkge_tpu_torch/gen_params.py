@@ -31,18 +31,19 @@ def _read_required(name: str, err_cls) -> bytes:
 _SRS_CACHE: dict = {}
 
 
-def load_srs(size: int, device=None, fixed_base=None) -> KZG:
+def load_srs(size: int, device=None, fixed_base=None, group=None) -> KZG:
     """Padded SRS plus the Lagrange bases for circuit size n
-    (gen_params/mod.rs:144-183), cached per (size, device, fixed_base): the
-    commit route (KZG's `fixed_base`) is part of the key, so that KZGs on two
-    routes over one SRS do not share their bases or table."""
+    (gen_params/mod.rs:144-183), cached per (size, device, fixed_base,
+    group): the commit route (KZG's `fixed_base` and `group`) is part of the
+    key, so that KZGs on two routes over one SRS do not share their bases or
+    table."""
     dev = resolve(device)
-    key = (size, str(dev), fixed_base)
+    key = (size, str(dev), fixed_base, group)
     kzg = _SRS_CACHE.get(key)
     if kzg is not None:
         return kzg
     g1, g2 = ser.load_srs_params(size, _read_required("srs-padding.bin", MissingSRSError))
-    kzg = KZG(g1, g2, device=dev, fixed_base=fixed_base)
+    kzg = KZG(g1, g2, device=dev, fixed_base=fixed_base, group=group)
     lag_name = f"lagrange-srs-{size}.bin"
     if os.path.exists(os.path.join(PARAMS_DIR, lag_name)):
         lg1, _ = ser.load_srs_unchecked(_read_required(lag_name, MissingSRSError))

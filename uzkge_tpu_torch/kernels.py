@@ -24,14 +24,16 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("ntt.cu", "msm.cu", "mont_mul.cu", "fixed_base.cu", "fixed_base_query.cu")
-HEADERS = ("field.cuh", "fixed_base.cuh", "fixed_base_query.cuh")
+SOURCES = ("ntt.cu", "msm.cu", "mont_mul.cu", "fixed_base.cu", "fixed_base_query.cu",
+           "scan_reduce.cu")
+HEADERS = ("field.cuh", "fixed_base.cuh", "fixed_base_query.cuh", "scan_reduce.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 # launch counts per kernel: plain integers, reset by reset_launches()
 LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
             "fp_mont_mul": 0, "fb_bases": 0, "fb_mult_chunk": 0, "fq_batch_inv": 0,
-            "fb_select": 0, "fb_pair_den": 0, "fb_pair_combine": 0, "fb_fold": 0}
+            "fb_select": 0, "fb_pair_den": 0, "fb_pair_combine": 0, "fb_fold": 0,
+            "scan_leaf_reduce": 0, "scan_proj_reduce": 0}
 
 _lib = None
 
@@ -64,6 +66,10 @@ _SIGNATURES = {
     "fb_pair_combine_launch": [_P] * 7 + [_L, _L, _P],
     # X, Y, Z, oX, oY, oZ, groups, w, stream
     "fb_fold_launch": [_P] * 6 + [_L, _I, _P],
+    # ax, ay, digits, ox, oy, oz, P, K, n, S, stream
+    "scan_leaf_reduce_launch": [_P] * 6 + [_L, _L, _L, _I, _P],
+    # X, Y, Z, oX, oY, oZ, lanes, S, stream
+    "scan_proj_reduce_launch": [_P] * 6 + [_L, _I, _P],
 }
 
 

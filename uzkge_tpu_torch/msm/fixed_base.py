@@ -42,6 +42,21 @@ form), then runs four more kernels (csrc/fixed_base_query.cu):
     (_fold8_kernel and the XLA remainder), so that one projective point per
     MSM reaches the host (`_extract_host`).
 
+The chain MSM (`msm_chain`, the per-device MSM of parallel/sharded.py)
+keeps no table: every call builds the doubling chain 2^k * P_i, k < 256, with
+`build_bases(x, y, 256, 1)` and sums signed base-4 digits over it, leaf k =
+w*n + i reading chain row (2w + |d| - 1)*n + i, in rounds of two kernels
+(csrc/scan_reduce.cu):
+
+  * scan_leaf_reduce: per (MSM, lane), the sum of S consecutive leaves read
+    straight from the chain by their digits (the TPU's _scan_leaf_kernel,
+    after the gather that msm_chain does there in XLA);
+  * scan_proj_reduce: per lane, the sum of S consecutive projective points
+    (_scan_proj_kernel), round after round down to one point per MSM.
+
+Both keep the TPU kernels' two interleaved running sums (even s, odd s),
+added at the end, so that their outputs equal the Pallas bodies' mod p.
+
 Every kernel sits beside its plain torch-op version in this module; a CPU
 tensor takes the plain version, a CUDA tensor the kernel.  The group
 formulas are msm/msm.py's (`_padd_w`, `_madd_w`) in the plain versions and
@@ -59,12 +74,13 @@ from ..errors import ParameterError
 from ..ff.cuda_field import fp_mont_mul
 from ..ff.field import MASK32, fq, fr, lift, lower
 from ..ff.host_field import Fq
-from .msm import _madd_w, _padd_w
+from .msm import _identity_w, _madd_w, _padd_w
 
 INV_GROUP = 16  # elements per strided group of one batch-inversion level
 INV_ROOTS = 4096  # at most this many roots are inverted by Fermat
 AFFINE_LEVELS = 3  # batch-affine levels of a query, then projective folds
 INF1, INF2, BAD = 1, 2, 4  # pair flags: first / second point the identity; x1 == x2
+SCAN_IL = 2  # interleaved running sums per scan lane (the TPU kernels' IL)
 
 
 # ------------------------------------------------------------ plain versions
@@ -154,6 +170,51 @@ def fb_fold_plain(X, Y, Z, w: int):
         pts = _padd_w(*(t[..., :h] for t in pts), *(t[..., h:] for t in pts))
         w = h
     return tuple(lower(t[..., 0]) for t in pts)
+
+
+def chain_rows(digits, n: int):
+    """The doubling-chain row of every leaf of (P, K) digits, leaf k = w*n + i:
+    (2w + |d| - 1)*n + i, or (2w)*n + i for d = 0 (msm_chain's gather index
+    on the TPU)."""
+    k = torch.arange(digits.shape[1], device=digits.device)
+    mag = digits.to(torch.int64).abs()
+    return (2 * (k // n) + (mag - 1).clamp(min=0)) * n + k % n
+
+
+def _scan_sums(count: int, step, lanes, device):
+    """SCAN_IL wide running sums over `lanes` from the identity, step s < count
+    folding into sum s % SCAN_IL (`step(acc, s)` -> acc), added at the end:
+    the TPU scan kernels' order."""
+    accs = [_identity_w(lanes, device) for _ in range(min(SCAN_IL, count))]
+    for s in range(count):
+        accs[s % len(accs)] = step(accs[s % len(accs)], s)
+    return accs[0] if len(accs) == 1 else _padd_w(*accs[0], *accs[1])
+
+
+def scan_leaf_reduce_plain(ax, ay, digits, n: int, S: int):
+    """Torch-op version of the scan_leaf_reduce kernel."""
+    P, K = digits.shape
+    J = K // S
+    rows = chain_rows(digits, n).view(P, J, S)
+    d = digits.view(P, J, S)
+
+    def step(acc, s):
+        x, y = lift(ax[rows[:, :, s]]), lift(ay[rows[:, :, s]])
+        y = torch.where(d[:, :, s] < 0, fq.wneg(y), y)
+        keep = d[:, :, s] == 0
+        return tuple(torch.where(keep, a, v) for a, v in zip(acc, _madd_w(*acc, x, y)))
+
+    acc = _scan_sums(S, step, (P, J), ax.device)
+    return tuple(lower(t).reshape(P * J, 8) for t in acc)
+
+
+def scan_proj_reduce_plain(X, Y, Z, S: int):
+    """Torch-op version of the scan_proj_reduce kernel."""
+    lanes = X.shape[0] // S
+    pts = [lift(t).view(8, lanes, S) for t in (X, Y, Z)]
+    acc = _scan_sums(S, lambda a, s: _padd_w(*a, *(t[:, :, s] for t in pts)), (lanes,),
+                     X.device)
+    return tuple(lower(t) for t in acc)
 
 
 # ------------------------------------------------------------- the kernels
@@ -332,6 +393,53 @@ def fb_fold(X, Y, Z, w: int):
     return out
 
 
+def _scan_width(S: int, total: int, name: str):
+    if S < 1 or S & (S - 1) or total < S or total % S:
+        raise ValueError(f"{name}: S = {S} must be a power of two dividing {total}")
+
+
+def scan_leaf_reduce(ax, ay, digits, n: int, S: int):
+    """The leaf round of the chain MSM: P MSMs of K = W*n leaves, digits (P,
+    K) int32 in [-2, 2] with leaf k = w*n + i, over the affine doubling chain
+    ax, ay (2K, 8) whose row r*n + i is 2^r * P_i.  Returns (X, Y, Z), each
+    (P*J, 8) with J = K / S: element p*J + j the projective sum of leaves
+    j*S .. j*S + S - 1 of MSM p."""
+    if digits.dim() != 2:
+        raise ValueError(f"scan_leaf_reduce: digits of shape {tuple(digits.shape)}, want (P, K)")
+    (P, K), dev = digits.shape, digits.device
+    kernels.check(digits, "digits", (P, K), dev)
+    kernels.check(ax, "ax", (2 * K, 8), dev)
+    kernels.check(ay, "ay", (2 * K, 8), dev)
+    if P < 1 or n < 1 or K < n or K % n:
+        raise ValueError(f"scan_leaf_reduce: P = {P}, K = {K}, n = {n}: want n dividing K")
+    _scan_width(S, K, "scan_leaf_reduce")
+    if not kernels.use_kernel(dev, "scan_leaf_reduce"):
+        return scan_leaf_reduce_plain(ax, ay, digits, n, S)
+    out = tuple(torch.empty((P * (K // S), 8), dtype=torch.int32, device=dev) for _ in range(3))
+    kernels.launch("scan_leaf_reduce_launch", ax.data_ptr(), ay.data_ptr(), digits.data_ptr(),
+                   *(o.data_ptr() for o in out), P, K, n, S, kernels.stream_of(digits))
+    kernels.LAUNCHES["scan_leaf_reduce"] += 1
+    return out
+
+
+def scan_proj_reduce(X, Y, Z, S: int):
+    """A projective round of the chain MSM: (N, 8) points each -> (N / S, 8),
+    element t the sum of points t*S .. t*S + S - 1."""
+    if X.dim() != 2:
+        raise ValueError(f"scan_proj_reduce: X of shape {tuple(X.shape)}, want (N, 8)")
+    N, dev = X.shape[0], X.device
+    for t, name in ((X, "X"), (Y, "Y"), (Z, "Z")):
+        kernels.check(t, name, (N, 8), dev)
+    _scan_width(S, N, "scan_proj_reduce")
+    if not kernels.use_kernel(dev, "scan_proj_reduce"):
+        return scan_proj_reduce_plain(X, Y, Z, S)
+    out = tuple(torch.empty((N // S, 8), dtype=torch.int32, device=dev) for _ in range(3))
+    kernels.launch("scan_proj_reduce_launch", X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
+                   *(o.data_ptr() for o in out), N // S, S, kernels.stream_of(X))
+    kernels.LAUNCHES["scan_proj_reduce"] += 1
+    return out
+
+
 # -------------------------------------------------------------- table build
 
 
@@ -424,6 +532,54 @@ def _extract_host(X, Y, Z):
             zi = next(inv)
             out.append((ints[3 * i] * zi % Q_MOD, ints[3 * i + 1] * zi % Q_MOD))
     return out
+
+
+# --------------------------------------------------------------- chain MSM
+
+
+def pick_s(per: int, cap: int = 32) -> int:
+    """The scan width of a round over `per` points per MSM: the largest power
+    of two <= cap dividing per (`_pick_S`)."""
+    s = 1
+    while s < cap and per % (s * 2) == 0:
+        s *= 2
+    return s
+
+
+def reduce_leaves(ax, ay, digits, n: int):
+    """(P, K) digits over the chain (ax, ay) -> projective sums (X, Y, Z),
+    each (P, 8): one scan_leaf_reduce round, then scan_proj_reduce rounds
+    down to one point per MSM (`_reduce_leaves`).  K must be a power of
+    two."""
+    K = digits.shape[1]
+    S = pick_s(K)
+    X, Y, Z = scan_leaf_reduce(ax, ay, digits, n, S)
+    per = K // S
+    while per > 1:
+        S = pick_s(per)
+        X, Y, Z = scan_proj_reduce(X, Y, Z, S)
+        per //= S
+    return X, Y, Z
+
+
+def msm_chain(x, y, scalars, bits: int = 256):
+    """P MSMs over n affine points with no table kept (`msm_chain`): x, y (n,
+    8) Fq Montgomery, n a power of two; scalars (P, n, 8) Fr Montgomery on the
+    same device.  Builds the chain 2^k * P_i, k < bits, projective by fb_bases
+    (c = 1) and affine by fq_batch_inv and fp_mont_mul, recodes the scalars
+    into signed base-4 digits (|d| <= 2: entry 2w + |d| - 1 of point i's chain
+    is |d| * 4^w * P_i), then reduce_leaves.  Returns (X, Y, Z), each (P, 8).
+    bits = 256 keeps the window count W = 128 a power of two."""
+    c = 2
+    n, dev = x.shape[0], x.device
+    P = scalars.shape[0] if scalars.dim() == 3 else 0
+    kernels.check(scalars, "scalars", (P, n, 8), dev)
+    if P < 1 or n < 1 or n & (n - 1):
+        raise ValueError(f"msm_chain: P = {P}, n = {n}: want P >= 1 and n a power of two")
+    W = (bits + c - 1) // c
+    ax, ay = build_bases(x, y, 2 * W, 1)
+    digits = scalars_to_digits(scalars, c, bits).transpose(1, 2).reshape(P, W * n).contiguous()
+    return reduce_leaves(ax, ay, digits, n)
 
 
 class FixedBaseTable:

@@ -113,9 +113,14 @@ class NTTDomain:
             self._post_ladders[key] = got
         return got
 
+    def coset_ifft_batch(self, evals, k: int):
+        """Inverse of coset_fft_batch: (B, n, 8) -> (B, n, 8), each ifft'd with
+        coefficient j scaled by k^-j."""
+        return self._run(evals, inverse=True, post=self._coset_post_ladder(k))
+
     def coset_ifft(self, evals, k: int):
         """Inverse of coset_fft: ifft, then scale coefficient j by k^-j."""
-        return self._run(evals[None], inverse=True, post=self._coset_post_ladder(k))[0]
+        return self.coset_ifft_batch(evals[None], k)[0]
 
     def elements(self):
         """Host-side domain elements [1, w, w^2, ...] as python ints."""

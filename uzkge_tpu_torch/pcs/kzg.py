@@ -9,11 +9,17 @@ semantics are the reference's (kzg_poly_commitment.rs / pcs.rs): Lagrange-basis 
 `apply_blind_factors`, coefficient-basis commits over the contiguous SRS
 prefix, the batch_prove alpha-combination and one multi-pairing check.
 Opening arithmetic and pairings stay on the host (native_host, pcs/pairing).
+
+A KZG given a torch.distributed process group (`group=`, the JAX package's
+UZKGE_MESH=1) commits in the Lagrange basis through the sharded chain MSM of
+parallel/sharded.py on every rank, before any other route: over the proof
+axis when the batch divides among the ranks, else over the point axis.
 """
 
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import native_host as nh
 from ..constants.bn254 import R_MOD
@@ -22,9 +28,10 @@ from ..device import resolve
 from ..errors import DegreeError
 from ..ff.field import fr
 from ..ff.host_field import Fr
-from ..msm.fixed_base import FixedBaseTable
+from ..msm.fixed_base import FixedBaseTable, _extract_host
 from ..msm.msm import MSMBases, msm
 from ..ntt.ntt import get_domain
+from ..parallel.sharded import sharded_msm_batch, sharded_msm_device_sums
 from ..utils.transcript import Transcript
 from .pairing import multi_pairing_is_one
 
@@ -53,12 +60,15 @@ class KZG:
     """SRS container + commitment operations; device structures on `device`
     (the card unless the caller passes another).  `fixed_base` routes the
     Lagrange commits: True through the fixed-base table, False through the
-    Pippenger, None (the default) by `_fb_enabled`."""
+    Pippenger, None (the default) by `_fb_enabled`; a process group `group`
+    (its device kind must be `device`'s) routes them through the sharded
+    chain MSM instead, whatever `fixed_base` says."""
 
     def __init__(self, g1_powers: List, g2_powers: List, lagrange_bases: Optional[List] = None,
-                 device=None, fixed_base: Optional[bool] = None):
+                 device=None, fixed_base: Optional[bool] = None, group=None):
         self.device = resolve(device)
         self.fixed_base = fixed_base
+        self.group = group
         self.g1_powers = g1_powers  # affine points; None marks SRS padding gaps
         self.g2_powers = g2_powers  # [G2, s*G2]
         contig = 0
@@ -72,7 +82,7 @@ class KZG:
 
     @staticmethod
     def setup_insecure(max_degree: int, tau: int, domain_n: Optional[int] = None,
-                       device=None, fixed_base: Optional[bool] = None) -> "KZG":
+                       device=None, fixed_base: Optional[bool] = None, group=None) -> "KZG":
         """Dev/test SRS with a known tau, optionally with Lagrange bases over a
         size-n domain (reference `KZGCommitmentScheme::new`, kzg:183-204)."""
         g1 = [g1_mul((1, 2), pow(tau, i, R_MOD)) for i in range(max_degree + 1)]
@@ -90,7 +100,7 @@ class KZG:
                 li = wi * n_inv % R_MOD * zt % R_MOD * pow((tau - wi) % R_MOD, R_MOD - 2, R_MOD) % R_MOD
                 lagrange.append(g1_mul((1, 2), li))
                 wi = wi * w % R_MOD
-        return KZG(g1, g2, lagrange, device=device, fixed_base=fixed_base)
+        return KZG(g1, g2, lagrange, device=device, fixed_base=fixed_base, group=group)
 
     def set_lagrange(self, lagrange_bases: List):
         self._lagrange_points = lagrange_bases
@@ -98,6 +108,7 @@ class KZG:
         self._lagrange = True
         self._lagrange_vb = None  # MSMBases, built on the first commit
         self._lagrange_fb = None  # FixedBaseTable, built on the first call
+        self._lagrange_sh = None  # MSMBases for the sharded MSM, built on the first commit
 
     @property
     def lagrange_n(self):
@@ -116,6 +127,8 @@ class KZG:
 
     def uses_fixed_base(self) -> bool:
         """Whether Lagrange commits go through lagrange_fb_table()."""
+        if self.group is not None:
+            return False
         if self.fixed_base is not None:
             return self.fixed_base
         return _fb_enabled(self.lagrange_n, self.device)
@@ -142,11 +155,23 @@ class KZG:
         evaluations on the device -> list of host affine points."""
         assert self._lagrange is not None
         batch = (evals if evals.dim() == 3 else evals[None]).contiguous()
+        if self.group is not None:
+            return _extract_host(*self._sharded_commit(batch))
         if self.uses_fixed_base():
             return self.lagrange_fb_table().msm_mont(batch)
         if self._lagrange_vb is None:
             self._lagrange_vb = MSMBases(self._lagrange_points, self.device)
         return msm(self._lagrange_vb, batch)
+
+    def _sharded_commit(self, batch):
+        """Projective sums of a (P, n, 8) batch through the sharded chain MSM
+        (`commit_evals_batch`'s mesh route)."""
+        if self._lagrange_sh is None:
+            self._lagrange_sh = MSMBases(self._lagrange_points, self.device)
+        b = self._lagrange_sh
+        if batch.shape[0] % dist.get_world_size(self.group) == 0:
+            return sharded_msm_batch(self.group, b.x, b.y, batch)
+        return sharded_msm_device_sums(self.group, b.x, b.y, batch)
 
     def commit_evals(self, evals):
         """Lagrange-basis commit of one (n, 8) vector of evaluations."""

@@ -6,7 +6,9 @@ bytes:
 
   * witness / selector / z polynomials: batched iFFTs on the device,
     Lagrange-basis commits through one batched MSM per round, blind factors
-    on the host;
+    on the host; with a KZG on a process group (`KZG(..., group=)`) the
+    batched NTTs are sharded over its ranks (`_ntt_batch`), as the commits
+    are;
   * the z grand product, the transcript and the openings' host arithmetic
     run in native host math (native_host.py, csrc/hostmath.c);
   * the quotient numerator is evaluated over the 8n coset by the 18-term
@@ -20,11 +22,13 @@ function of it.
 from typing import List
 
 import torch
+import torch.distributed as dist
 
 from .. import native_host as nh
 from ..constants.bn254 import R_MOD as P
 from ..ff.field import fr, lift, lower
 from ..ntt.ntt import get_domain
+from ..parallel.sharded import sharded_ntt_batch
 from ..utils.stagetimer import stage
 from ..utils.transcript import Transcript
 from .cs import N_WIRES_PER_GATE, TurboCS
@@ -233,6 +237,22 @@ def _pad_stack(polys, m: int):
     return out
 
 
+def _ntt_batch(kzg, dom, x, inverse: bool = False, coset_k: int = None):
+    """A batched (i)NTT of (B, m, 8) (`_mesh_ntt_batch`): through
+    parallel/sharded.py::sharded_ntt_batch when the KZG has a process group,
+    the batch zero-padded to a multiple of the world size and trimmed after;
+    else the domain's own batched NTT."""
+    if kzg.group is None:
+        if coset_k is not None:
+            return dom.coset_ifft_batch(x, coset_k) if inverse else dom.coset_fft_batch(x, coset_k)
+        return dom.ifft_batch(x) if inverse else dom.fft_batch(x)
+    ws, B = dist.get_world_size(kzg.group), x.shape[0]
+    pad = -B % ws
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+    return sharded_ntt_batch(kzg.group, x, inverse=inverse, coset_k=coset_k)[:B]
+
+
 def _fetch_blobs(arrays):
     """One device-to-host copy for many (m_i, 8) Montgomery tensors; returns
     their standard-form 32-byte LE blobs."""
@@ -317,12 +337,12 @@ def prover(rng, transcript: Transcript, kzg, cs: TurboCS, pp: ProverParams,
             wsel_flat = [v for row in wsel_rows for v in row]
             wsel_evals = fr.to_mont_limbs(wsel_flat, dev).reshape(3, n, 8)
     with stage("r1_ifft", block=w_evals):
-        w_coefs = dom.ifft_batch(w_evals)
+        w_coefs = _ntt_batch(kzg, dom, w_evals, inverse=True)
         w_blinds = [[rand_fr() for _ in range(hd)] for hd in (3, 3, 3, 2, 2)]
         w_polys = [_hide(w_coefs[i], w_blinds[i], n) for i in range(5)]
         w_sel_polys = []
         if with_shuffle:
-            wsel_coefs = dom.ifft_batch(wsel_evals)
+            wsel_coefs = _ntt_batch(kzg, dom, wsel_evals, inverse=True)
             wsel_blinds = [[rand_fr(), rand_fr()] for _ in range(3)]
             w_sel_polys = [_hide(wsel_coefs[i], wsel_blinds[i], n) for i in range(3)]
     cm_w_sel_vec = []
@@ -372,9 +392,9 @@ def prover(rng, transcript: Transcript, kzg, cs: TurboCS, pp: ProverParams,
         for pos, ci in enumerate(vk.public_vars_constraint_indices):
             pi_evals[ci] = online_values[pos]
         pi_coefs = dom.ifft(fr.to_mont_limbs(pi_evals, dev))
-        w_coset = dom_m.coset_fft_batch(_pad_stack(w_polys, m), k1)
+        w_coset = _ntt_batch(kzg, dom_m, _pad_stack(w_polys, m), coset_k=k1)
         if with_shuffle:
-            wsel_coset = dom_m.coset_fft_batch(_pad_stack(w_sel_polys, m), k1)
+            wsel_coset = _ntt_batch(kzg, dom_m, _pad_stack(w_sel_polys, m), coset_k=k1)
         else:
             wsel_coset = torch.zeros((3, m, 8), dtype=torch.int32, device=dev)
         z_coset = dom_m.coset_fft(z_poly, k1)

@@ -63,19 +63,19 @@ def build_cs(rng, aggregate_public_key, input_cards: List[Ciphertext]):
     return cs, shuffled
 
 
-def gen_shuffle_prover_params(n_cards: int, device=None,
-                              fixed_base=None) -> Tuple[ProverParams, TurboCS, object]:
+def gen_shuffle_prover_params(n_cards: int, device=None, fixed_base=None,
+                              group=None) -> Tuple[ProverParams, TurboCS, object]:
     """(shuffle/src/gen_params/params.rs:29-54)  Returns (pp, cs, kzg), with
     the proving key's tensors on `device` and the KZG's commit route set by
-    `fixed_base` (see pcs/kzg.py::KZG).  The params serve a KZG of either
-    route: `prove_shuffle` takes the KZG apart."""
+    `fixed_base` and `group` (see pcs/kzg.py::KZG).  The params serve a KZG
+    of any route: `prove_shuffle` takes the KZG apart."""
     from ..gen_params import load_shuffle_verifier_params, load_srs
 
     rng = _random.Random(0)
     apk = bjj.mul(bjj.GENERATOR, rng.randrange(1, bjj.ORDER))
     cards = [Ciphertext.rand(rng) for _ in range(n_cards)]
     cs, _ = build_cs(rng, apk, cards)
-    kzg = load_srs(cs.size, device, fixed_base)
+    kzg = load_srs(cs.size, device, fixed_base, group)
     vk = None
     if n_cards in (48, 52, 54):
         vk = load_shuffle_verifier_params(n_cards)
