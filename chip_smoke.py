@@ -24,11 +24,11 @@ Phases, any failure exits nonzero:
      its plain version, then the whole table built by the kernels against the
      one the plain versions build; on that table the query's kernels for P =
      3 MSMs (fb_select, fb_pair_den and fb_pair_combine with identity and
-     x1 == x2 pairs planted, fq_batch_inv at the level's size, fb_fold at
-     widths 8 and 2), each against its plain version, and a whole msm_mont
-     against the host Pippenger; on the same 256 points the chain MSM's
-     kernels for P = 3 rows (an all-zero row and a run of zero digits
-     planted): the chain build (fb_bases at W = 256, c = 1, fq_batch_inv,
+     x1 == x2 pairs planted, fq_batch_inv at the level's size, fb_fold over
+     the level's whole tail and at width 2), each against its plain version,
+     and a whole msm_mont against the host Pippenger; on the same 256 points
+     the chain MSM's kernels for P = 3 rows (an all-zero row and a run of
+     zero digits planted): the chain build (fb_bases at W = 256, c = 1, fq_batch_inv,
      fp_mont_mul), scan_leaf_reduce and every scan_proj_reduce round, each
      against its plain version, and msm_chain's points against the host
      Pippenger's and the table query's;
@@ -40,7 +40,8 @@ Phases, any failure exits nonzero:
      sha256 must equal the JAX package's (tests/data/torch_golden.json), and
      every kernel of the proof must have been launched by that run; one more
      proof under torch.profiler gives the device's busy time (device events
-     only) and its idle share of the profiled proof; then the same proof on
+     only), its idle share of the profiled proof, and the summed device time
+     and count of every kernel of csrc/ by name; then the same proof on
      the same prover params through a KZG with fixed_base=False (the
      variable-base Pippenger), from the same rng state: the same sha256,
      both Pippenger kernels launched; both proofs' stage times side by side;
@@ -52,8 +53,11 @@ Phases, any failure exits nonzero:
      version, timed beside it; then the query at r1_commit's batch (P = 8,
      n = 16384, K = 524,288 leaves per MSM), every kernel at every level
      against its plain version, timed beside it (fb_select also beside
-     PyTorch's own gather of the same rows), and the whole query's points
-     against the variable-base Pippenger's on the same scalars; then
+     PyTorch's own gather of the same rows; fb_fold launch by launch and
+     over the whole tail), and the whole query's points against the
+     variable-base Pippenger's on the same scalars; fb_fold and fq_batch_inv
+     at the proof's other batches (P = 1, 5, 2), against their plain
+     versions, timed; then
      msm_chain at the same shape (P = 8 dense rows, n = 16384: 2^21 leaves
      per MSM; one leaf round with S = 32, projective rounds with S = 32,
      32, 32, 2), the chain build and every round against its plain version,
@@ -82,10 +86,11 @@ The scan kernels' times are per msm_chain call of P = 8 MSMs, scan_proj_reduce
 summed over its four rounds; their launches are the group proof's.
 The query kernels' times are per query of P = 8 MSMs, summed over its
 levels (each level's time is logged): AFFINE_LEVELS batch-affine levels
-(fb_pair_den, fq_batch_inv, fb_pair_combine) and five 8-to-1 folds plus the
-remainder's halving (fb_fold).  fp_mont_mul and fq_batch_inv run on both
-the proof and the table build; their JSON rows give the proof's launches
-and the query's shapes, and phase 5 logs their times at the build's.
+(fb_pair_den, fq_batch_inv, fb_pair_combine); fb_fold's is the whole tail
+(Kc = 65,536 to 1 in two launches, each also timed alone).  fp_mont_mul and
+fq_batch_inv run on both the proof and the table build; their JSON rows
+give the proof's launches and the query's shapes, and phase 5 logs their
+times at the build's.
 
 Bounds: the larger of the bytes the function must move (each input read
 once, each output written once) over 3.35 TB/s, and its 32-bit integer
@@ -97,12 +102,12 @@ fp_mul, 8 x 32-bit limbs) is 264 multiplies: 64 limb products a_j * b_i and
 group operations count the products of the complete formulas of Renes,
 Costello and Batina for a = 0 (RCB): a mixed addition (Alg. 8) 11, a
 projective addition (Alg. 7) 12, a doubling (Alg. 9) 8.  Their products by
-b3 = 3 * 3 = 9 cost no multiply (three doublings and an addition), so they
-are not counted, though field.cuh's g1_madd and g1_padd do them as
-products, and the kernels double with g1_padd.  A batch inversion of N
-elements needs 3 (N - 1) products and one Fermat inversion.  An affine pair
-addition given the inverse needs 3 products; a negation, a select or a
-difference none.
+b3 = 3 * 3 = 9 cost no multiply (three doublings and an addition, as
+field.cuh's g1_madd and g1_padd do them); the kernels double with g1_padd.
+A batch inversion of N elements needs 3 (N - 1) products and one Fermat
+inversion: the yardstick stays that, though fq_batch_inv inverts its group
+products by safegcd.  An affine pair addition given the inverse needs 3
+products; a negation, a select or a difference none.
 """
 
 import gc
@@ -353,9 +358,9 @@ def fq_rows(points, dev):
 
 
 def fermat_products() -> int:
-    """Montgomery products of one Fermat inversion x^(q-2) (fixed_base.cuh
-    fq_inv_fermat): a squaring per bit below the top one, a multiply per set
-    bit among them."""
+    """Montgomery products of one Fermat inversion x^(q-2) by left-to-right
+    square and multiply: a squaring per bit below the top one, a multiply per
+    set bit among them."""
     from uzkge_tpu_torch.constants.bn254 import Q_MOD
 
     e = Q_MOD - 2
@@ -365,7 +370,8 @@ def fermat_products() -> int:
 def batch_inv_products(N: int) -> int:
     """Montgomery products a batch inversion of N elements needs: one
     forward and two backward products per element but the first, and one
-    Fermat inversion (fq_batch_inv itself inverts up to INV_ROOTS roots)."""
+    Fermat inversion (fq_batch_inv itself inverts up to INV_ROOTS group
+    products by safegcd)."""
     return 3 * (N - 1) + fermat_products()
 
 
@@ -406,6 +412,19 @@ def plain_table(x, y, W: int, c: int):
             table[:, d0 : d0 + CH, half] = fp_mont_mul_plain(
                 fq, E.view(CH * K, 8), zinv).view(CH, K, 8).transpose(0, 1)
     return table
+
+
+def cuda_launches(fn, prefix: str) -> int:
+    """The CUDA launches of one fn() through the C entry points whose names
+    start with `prefix`, as kernels.launch counts them (kernels.CALLS)."""
+    from uzkge_tpu_torch import kernels
+
+    def count():
+        return sum(v for k, v in kernels.CALLS.items() if k.startswith(prefix))
+
+    before = count()
+    fn()
+    return count() - before
 
 
 def random_fr(N: int, dev):
@@ -465,8 +484,9 @@ def check_query_small(dev, tbl, errs, rng):
     """The query's kernels on the n = 256, c = 8 table for P = 3 MSMs, each
     against its plain version on the same inputs: fb_select, a level with
     identity and x1 == x2 pairs planted (fb_pair_den, fq_batch_inv at the
-    level's size, fb_pair_combine), fb_fold at widths 8 and 2; then a whole
-    msm_mont against the host Pippenger."""
+    level's size, fb_pair_combine), fb_fold over the level's whole tail
+    (4096 points per MSM: tiles of 512, then 8) and at width 2; then a
+    whole msm_mont against the host Pippenger."""
     from uzkge_tpu_torch.constants.bn254 import R_MOD
     from uzkge_tpu_torch.ff.field import fr
     from uzkge_tpu_torch.msm import fixed_base as fb
@@ -500,8 +520,8 @@ def check_query_small(dev, tbl, errs, rng):
     if io[0, :3].tolist() != [1, 0, 0] or int(io[2, 3]) != 1:
         raise AssertionError("fb_pair_combine: the planted pairs' identity flags are wrong")
     pts = fb.to_projective(xo, yo, io)
-    compare(errs, "fb_fold", f"P={P} Kc={H} w=8", lambda: fb.fb_fold(*pts, 8),
-            lambda: fb.fb_fold_plain(*pts, 8))
+    compare(errs, "fb_fold", f"P={P} Kc={H} tail", lambda: fb.fold_tail(*pts),
+            lambda: fb.fold_tail_plain(*pts))
     two = tuple(t[:, :64].contiguous() for t in pts)
     compare(errs, "fb_fold", f"P={P} Kc=64 w=2", lambda: fb.fb_fold(*two, 2),
             lambda: fb.fb_fold_plain(*two, 2))
@@ -646,6 +666,35 @@ def device_profile(fn):
     return wall, events, busy_us / 1e6
 
 
+def port_kernel_names():
+    """The __global__ functions of uzkge_tpu_torch/csrc/*.cu."""
+    import glob
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(ROOT, "uzkge_tpu_torch", "csrc", "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                    f.read()))
+    return sorted(names)
+
+
+def log_port_kernels(events):
+    """Summed device time and count of every kernel of csrc/ among the
+    events, by name, those that never ran included."""
+    import re
+
+    names = port_kernel_names()
+    sums = {k: [0.0, 0] for k in names}
+    for lo, hi, name in events:
+        for k in names:
+            if re.search(rf"\b{k}\b", name):
+                sums[k][0] += hi - lo
+                sums[k][1] += 1
+    for k in names:
+        log(f"  port kernel {k:30s} device {sums[k][0] / 1e3:10.4f} ms  x{sums[k][1]}")
+
+
 def log_device_time(events, top: int):
     """The `top` names of device events by summed time."""
     by_name = {}
@@ -672,6 +721,7 @@ def profile_prove(seed, pp, kzg, joint, deck, latency):
         f"device busy {busy_s:.4f} s, idle share of the profiled wall {1 - busy_s / wall:.4f}; "
         f"busy / unprofiled latency {busy_s / latency:.4f}")
     log_device_time(events, 15)
+    log_port_kernels(events)
 
 
 def profile_table_build(tbl, dev):
@@ -792,6 +842,7 @@ def check_query_full(dev, tbl, rate, errs, rng):
     version on the same inputs, timed beside it; per kernel the times, bytes
     and products summed over the query's levels.  Then the whole query, timed,
     against the variable-base Pippenger on the same scalars."""
+    from uzkge_tpu_torch import kernels
     from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul, fp_mont_mul_plain
     from uzkge_tpu_torch.ff.field import fr
     from uzkge_tpu_torch.msm import fixed_base as fb
@@ -829,7 +880,7 @@ def check_query_full(dev, tbl, rate, errs, rng):
         raise AssertionError("PyTorch's gather of the rows disagrees with fb_select's x")
     log(f"fb_select library: table[k, |d| - 1] by advanced indexing {lib_ms:.4f} ms")
     del rows
-    Kc = K
+    Kc, inv_launches = K, []
     for _ in range(fb.AFFINE_LEVELS):
         H = Kc // 2
         shape = f"P={P} H={H}"
@@ -842,28 +893,40 @@ def check_query_full(dev, tbl, rate, errs, rng):
                                    lambda: fb.fq_batch_inv(dflat),
                                    lambda: fb.fq_batch_inv_plain(dflat))
         add("fq_batch_inv", ms, pms, 64 * P * H, batch_inv_products(P * H), f"N={P * H}")
+        inv_launches.append(cuda_launches(lambda: fb.fq_batch_inv(dflat), "fq_inv_"))
         dinv = dinv.view(P, H, 8)
         (x, y, inf), ms, pms = compare(errs, "fb_pair_combine", shape,
                                        lambda: fb.fb_pair_combine(x, y, dinv, flags),
                                        lambda: fb.fb_pair_combine_plain(x, y, dinv, flags))
         add("fb_pair_combine", ms, pms, P * Kc * 64 + P * H * (32 + 4 + 64 + 4), 3 * P * H, shape)
         Kc = H
-    pts = fb.to_projective(x, y, inf)
-    while Kc > 1:
-        w = 8 if Kc % 8 == 0 else Kc
-        shape = f"P={P} Kc={Kc} w={w}"
-        pts, ms, pms = compare(errs, "fb_fold", shape, lambda: fb.fb_fold(*pts, w),
-                               lambda: fb.fb_fold_plain(*pts, w))
-        add("fb_fold", ms, pms, 96 * P * Kc + 96 * P * (Kc // w), PADD_PRODUCTS * P * (Kc - Kc // w),
-            shape)
-        Kc //= w
+    proj = pts = fb.to_projective(x, y, inf)
+    tiles = fb.fold_tiles(Kc)
+    for w in tiles:  # each launch alone
+        pts = compare(errs, "fb_fold", f"P={P} Kc={pts[0].shape[1]} w={w} (one launch)",
+                      lambda: fb.fb_fold(*pts, w), lambda: fb.fb_fold_plain(*pts, w))[0]
+    shape = f"P={P} Kc={Kc} tail ({len(tiles)} launches)"
+    tail, ms, pms = compare(errs, "fb_fold", shape, lambda: fb.fold_tail(*proj),
+                            lambda: fb.fold_tail_plain(*proj))
+    if not all(torch.equal(a[:, 0], b) for a, b in zip(pts, tail)):
+        raise AssertionError("fb_fold launch by launch disagrees with fold_tail")
+    # Kc - 1 additions per MSM; the tail's input read and its sums written once
+    add("fb_fold", ms, pms, 96 * P * (Kc + 1), PADD_PRODUCTS * P * (Kc - 1), shape)
 
+    before = kernels.LAUNCHES["fb_fold"]
+    tbl.query(sc)
+    per_query = kernels.LAUNCHES["fb_fold"] - before
     query_ms, (X, Y, Z) = cuda_ms(lambda: tbl.query(sc), reps=3)
+    log(f"CUDA launches per P={P} query: fb_fold {per_query}; fq_batch_inv {inv_launches} "
+        f"(its levels, N = {[P * (K >> (l + 1)) for l in range(fb.AFFINE_LEVELS)]}; "
+        f"counted by kernels.CALLS)")
+    if per_query > 2 or max(inv_launches) > 3:
+        raise AssertionError("the query takes more than 2 fb_fold or 3 fq_batch_inv launches")
     got = tbl.msm_mont(sc)
     bases = M.MSMBases(tbl.points, dev)
     if got != M.msm(bases, sc) or None in got:
         raise AssertionError("the fixed-base query disagrees with the Pippenger (P = 8, dense)")
-    if fb._extract_host(*pts) != got:
+    if fb._extract_host(*tail) != got:
         raise AssertionError("the query's kernels, level by level, disagree with msm_mont")
     log(f"fixed-base query P={P} n={n} K={K}: {query_ms:.4f} ms on the card (digits, select, "
         f"levels, folds; mean of 3), points == the variable-base Pippenger's")
@@ -875,6 +938,38 @@ def check_query_full(dev, tbl, rate, errs, rng):
             f"bound {res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
     res["fb_select"]["library_ms"] = lib_ms
     return res, query_ms
+
+
+def check_query_batches(dev, tbl, errs):
+    """fq_batch_inv and fb_fold at the proof's other batches (P = 1, 5, 2:
+    r2_commit, r3_t_split_commit, r5_openings) on the levels of a query of
+    random scalars, each against its plain version, timed (mean of 3); the
+    points against msm_mont's.  Returns {P: {kernel: ms per query}}."""
+    from uzkge_tpu_torch.msm import fixed_base as fb
+
+    out = {}
+    for P in (1, 5, 2):
+        sc = random_fr(P * tbl.n, dev).view(P, tbl.n, 8)
+        d = fb.scalars_to_digits(sc, tbl.c, tbl.bits).transpose(1, 2).reshape(P, -1).contiguous()
+        x, y, inf = fb.fb_select(d, tbl.table)
+        inv_ms = 0.0
+        for _ in range(fb.AFFINE_LEVELS):
+            den, flags = fb.fb_pair_den(x, inf)
+            flat = den.view(-1, 8)
+            (dinv,), ms, _ = compare(errs, "fq_batch_inv", f"P={P} N={flat.shape[0]}",
+                                     lambda: fb.fq_batch_inv(flat),
+                                     lambda: fb.fq_batch_inv_plain(flat))
+            inv_ms += ms
+            x, y, inf = fb.fb_pair_combine(x, y, dinv.view(den.shape), flags)
+        pts = fb.to_projective(x, y, inf)
+        tail, fold_ms, _ = compare(errs, "fb_fold", f"P={P} Kc={x.shape[1]} tail",
+                                   lambda: fb.fold_tail(*pts), lambda: fb.fold_tail_plain(*pts))
+        if fb._extract_host(*tail) != tbl.msm_mont(sc):
+            raise AssertionError(f"the query's levels at P = {P} disagree with msm_mont")
+        out[P] = {"fq_batch_inv": inv_ms, "fb_fold": fold_ms}
+        log(f"query P={P}: fq_batch_inv {inv_ms:.4f} ms over its {fb.AFFINE_LEVELS} levels, "
+            f"fb_fold {fold_ms:.4f} ms over the tail")
+    return out
 
 
 # ------------------------------------------------------------ chain MSM
@@ -1118,6 +1213,10 @@ def main():
     tbl, fb_launches = fixed_base_path(dev, rng)
     fbres = check_fixed_base_full(dev, tbl, rate, errs)
     qres, query_ms = check_query_full(dev, tbl, rate, errs, rng)
+    batches = check_query_batches(dev, tbl, errs)
+    per_proof = {k: qres[k]["ms"] + sum(b[k] for b in batches.values())
+                 for k in ("fq_batch_inv", "fb_fold")}
+    log("per proof (queries at P = 8, 1, 5, 2), ms: " + json.dumps(per_proof))
     chain, sc, want = check_chain_full(dev, tbl, rate, errs, query_ms)
     group_launches = sharded_path(dev, golden, ctx, tbl, sc, want)
     launches.update({k: launches_vb[k] for k in VB_KERNELS})

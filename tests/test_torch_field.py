@@ -9,10 +9,11 @@ has no rounding):
     arithmetic, compiled with g++ into a small ctypes harness, against fq_ctx
     / fr_ctx, the host curve arithmetic of uzkge_tpu/curve/bn254.py, the
     fixed-base group chains and batch inversion of the JAX package
-    (msm/fixed_base.py's padd_g / madd_g, ff/vfield.py's batch_inv), the JAX
+    (msm/fixed_base.py's padd_g / madd_g, ff/vfield.py's batch_inv, the host
+    Fq inverse of ff/field.py for the safegcd root inversion), the JAX
     query kernels' bodies (the select, the pair den / combine with their
-    flags, the projective fold), and the chain MSM's scan steps (_leaf_step,
-    _proj_step, _tree_combine) in the scan kernels' order.
+    flags, the projective fold's whole tail), and the chain MSM's scan steps
+    (_leaf_step, _proj_step, _tree_combine) in the scan kernels' order.
 Inputs come from numpy with a fixed seed plus the edge values 0, 1, p-1 and
 values near 2^254.
 """
@@ -94,6 +95,14 @@ def test_field_codecs_match_jax(name, p, jctx, tctx):
 _HARNESS = r"""
 #include "fixed_base_query.cuh"
 #include "scan_reduce.cuh"
+// fb_fold_tile's block on the host: its threads run in turn, so that a
+// round's pairs all read (into r) before any is stored; no barrier needed
+struct SerialBlock {
+  int B;
+  G1Proj *r;
+  template <class F> void each(F f) { for (int t = 0; t < B; t++) f(t, r[t]); }
+  void sync() {}
+};
 extern "C" {
 #define BIN(name, F, fn) \
   void name(uint32_t *r, const uint32_t *a, const uint32_t *b, int n) { \
@@ -102,6 +111,8 @@ BIN(fr_mul_n, Fr, fp_mul) BIN(fr_add_n, Fr, fp_add) BIN(fr_sub_n, Fr, fp_sub)
 BIN(fq_mul_n, Fq, fp_mul) BIN(fq_add_n, Fq, fp_add) BIN(fq_sub_n, Fq, fp_sub)
 void fq_neg_n(uint32_t *r, const uint32_t *a, int n) {
   for (int i = 0; i < n; i++) fp_neg<Fq>(r + 8 * i, a + 8 * i); }
+void fq_mul9_n(uint32_t *r, const uint32_t *a, int n) {
+  for (int i = 0; i < n; i++) fp_mul9<Fq>(r + 8 * i, a + 8 * i); }
 void g1_madd_n(uint32_t *r, const uint32_t *p, const uint32_t *q, int n) {
   for (int i = 0; i < n; i++) {
     G1Proj a, o;
@@ -133,13 +144,15 @@ void fb_mult_chunk_n(const uint32_t *tx, const uint32_t *ty, const uint32_t *tz,
     fb_mult_chunk_lane(tx + o, ty + o, tz + o, bx + o, by + o, ox + o, oy + o, oz + o, fx + o,
                        fy + o, fz + o, CH, (size_t)K);
   } }
-void fq_inv_prefix_n(const uint32_t *a, uint32_t *pref, uint32_t *prod, long long M, long long N) {
-  for (long long t = 0; t < M; t++) fq_inv_prefix_group(a, pref, prod, t, M, N); }
-void fq_inv_back_n(const uint32_t *a, const uint32_t *pref, const uint32_t *pinv, uint32_t *out,
-                   long long M, long long N) {
-  for (long long t = 0; t < M; t++) fq_inv_back_group(a, pref, pinv, out, t, M, N); }
-void fq_inv_fermat_n(uint32_t *r, const uint32_t *a, int n) {
-  for (int i = 0; i < n; i++) fq_inv_fermat(r + 8 * i, a + 8 * i); }
+void fq_inv_down_n(const uint32_t *a, uint32_t *pref, uint32_t *prod, long long M, long long N) {
+  for (long long t = 0; t < M; t++) fq_inv_down_lane(a, pref, prod, t, M, N); }
+void fq_inv_root_n(const uint32_t *a, uint32_t *pref, uint32_t *out, long long M, long long N) {
+  for (long long t = 0; t < M; t++) fq_inv_root_lane(a, pref, out, t, M, N); }
+void fq_inv_up_n(const uint32_t *a, const uint32_t *pref, const uint32_t *pinv, uint32_t *out,
+                 long long M, long long N) {
+  for (long long t = 0; t < M; t++) fq_inv_up_lane(a, pref, pinv, out, t, M, N); }
+void fq_inv_mont_n(uint32_t *r, const uint32_t *a, int n) {
+  for (int i = 0; i < n; i++) fq_inv_mont(r + 8 * i, a + 8 * i); }
 void fb_select_n(const uint32_t *table, const int32_t *digits, uint32_t *x, uint32_t *y,
                  int32_t *inf, long long P, long long K, int D) {
   for (long long t = 0; t < P * K; t++) fb_select_lane(table, digits, x, y, inf, t, K, D); }
@@ -150,9 +163,18 @@ void fb_pair_combine_n(const uint32_t *x, const uint32_t *y, const uint32_t *din
                        const int32_t *flags, uint32_t *xo, uint32_t *yo, int32_t *info,
                        long long P, long long H) {
   for (long long t = 0; t < P * H; t++) fb_pair_combine_lane(x, y, dinv, flags, xo, yo, info, t, H); }
+// one fb_fold launch of blocks of B threads through fb_fold_tile, the
+// kernel's own loop, blocks one after another
 void fb_fold_n(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX, uint32_t *oY,
-               uint32_t *oZ, long long groups, int w) {
-  for (long long g = 0; g < groups; g++) fb_fold_lane(X, Y, Z, oX, oY, oZ, (size_t)g, w); }
+               uint32_t *oZ, long long tiles, int T, int B) {
+  G1Proj *r = new G1Proj[B];
+  uint32_t *s = new uint32_t[T / 2 * 24];
+  SerialBlock blk{B, r};
+  for (long long b = 0; b < tiles; b++)
+    fb_fold_tile(blk, X, Y, Z, s, s + T / 2 * 8, s + T / 2 * 16, oX, oY, oZ, b, T);
+  delete[] r;
+  delete[] s;
+}
 void scan_leaf_n(const uint32_t *ax, const uint32_t *ay, const int32_t *digits, uint32_t *ox,
                  uint32_t *oy, uint32_t *oz, long long P, long long K, long long n, int S) {
   for (long long t = 0; t < P * (K / S); t++) scan_leaf_lane(ax, ay, digits, ox, oy, oz, t, K, n, S); }
@@ -178,18 +200,19 @@ def header_lib(tmp_path_factory):
     for fn in ("fr_mul_n", "fr_add_n", "fr_sub_n", "fq_mul_n", "fq_add_n", "fq_sub_n",
                "g1_madd_n", "g1_padd_n"):
         getattr(lib, fn).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    lib.fq_neg_n.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    for fn in ("fq_neg_n", "fq_mul9_n", "fq_inv_mont_n"):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.g1_identity.argtypes = [ctypes.c_void_p]
     lib.fb_bases_n.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     lib.fb_mult_chunk_n.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
-    lib.fq_inv_prefix_n.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
-    lib.fq_inv_back_n.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-    lib.fq_inv_fermat_n.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.fq_inv_down_n.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+    lib.fq_inv_root_n.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+    lib.fq_inv_up_n.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
     ll = ctypes.c_longlong
     lib.fb_select_n.argtypes = [ctypes.c_void_p] * 5 + [ll, ll, ctypes.c_int]
     lib.fb_pair_den_n.argtypes = [ctypes.c_void_p] * 4 + [ll, ll]
     lib.fb_pair_combine_n.argtypes = [ctypes.c_void_p] * 7 + [ll, ll]
-    lib.fb_fold_n.argtypes = [ctypes.c_void_p] * 6 + [ll, ctypes.c_int]
+    lib.fb_fold_n.argtypes = [ctypes.c_void_p] * 6 + [ll, ctypes.c_int, ctypes.c_int]
     lib.scan_leaf_n.argtypes = [ctypes.c_void_p] * 6 + [ll, ll, ll, ctypes.c_int]
     lib.scan_proj_n.argtypes = [ctypes.c_void_p] * 6 + [ll, ctypes.c_int]
     return lib
@@ -221,6 +244,10 @@ def test_field_header_matches_jax(header_lib, name, p, jctx, tctx):
         got = np.zeros_like(ua)
         header_lib.fq_neg_n(got.ctypes.data, ua.ctypes.data, len(a))
         want = tf.from_jax_limbs(np.asarray(jctx.neg(ja)), "cpu").numpy().view(np.uint32)
+        assert (got == want).all()
+        header_lib.fq_mul9_n(got.ctypes.data, ua.ctypes.data, len(a))  # the curves' b3 = 9
+        nine = _jax_limbs(jctx, [9] * len(a))
+        want = tf.from_jax_limbs(np.asarray(jctx.mul(ja, nine)), "cpu").numpy().view(np.uint32)
         assert (got == want).all()
 
 
@@ -326,34 +353,72 @@ def test_fixed_base_chains_match_jax(header_lib):
         assert (fin[j] == _rows_of_v(T[j])).all(), j
 
 
-def test_fq_batch_inv_sweeps_match_jax(header_lib):
-    """fq_batch_inv's per-group prefix and backward sweeps and its Fermat
-    root inversion, compiled by g++, driven through the product tree of
-    fixed_base.batch_inv_levels as the wrapper drives the kernels (the
-    backward sweep in place over the prefixes), against vfq.batch_inv, at
-    N = 4500 (one level of 282 ragged strided groups) with p - 1 and 1."""
+def _inv_values():
+    """The inversion tests' values: {test: nonzero Fq values}."""
+    sweep = [v or 1 for v in _values(Q_MOD, 4500 - 7, 9)]
+    sweep[:2] = [Q_MOD - 1, 1]
+    root = [v for v in _values(Q_MOD, 1200, 10) if v]
+    root += [1, 2, Q_MOD - 1, (1 << 256) % Q_MOD] + [1 << k for k in range(254)]
+    return {"sweep": sweep, "root": root}
+
+
+@pytest.fixture(scope="module")
+def vfq_inverses():
+    """{test: vfq.batch_inv of its values as (N, 8) uint32 rows}, from one
+    batch_inv over all of them (its eager Fermat root takes ~30 s here)."""
     from uzkge_tpu.ff.vfield import vfq
-    from uzkge_tpu_torch.msm.fixed_base import batch_inv_levels
+
+    vals = _inv_values()
+    allinv = _rows_of_v(vfq.batch_inv(_jax_v(vals["sweep"] + vals["root"])))
+    return {"sweep": allinv[: len(vals["sweep"])], "root": allinv[len(vals["sweep"]) :]}
+
+
+def test_fq_inv_mont_matches_host_fq(header_lib, vfq_inverses):
+    """fq_inv_mont, the safegcd root inversion (Montgomery in and out),
+    compiled by g++, against the host Fq inverse of ff/field.py and
+    vfq.batch_inv on 1200 seeded values, the edge values, R mod q and every
+    power of two below q; 0 maps to 0."""
+    from uzkge_tpu.ff.field import Fq
+
+    vals = _inv_values()["root"]
+    a = _rows_of_v(_jax_v(vals))
+    got = np.zeros_like(a)
+    header_lib.fq_inv_mont_n(got.ctypes.data, a.ctypes.data, len(vals))
+    assert tf.fq.from_mont_limbs(torch.from_numpy(got.view(np.int32))) == [Fq.inv(v) for v in vals]
+    assert (got == vfq_inverses["root"]).all()
+    zero = np.zeros((1, 8), np.uint32)
+    header_lib.fq_inv_mont_n(got.ctypes.data, zero.ctypes.data, 1)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("roots", [None, 2], ids=["root-level-only", "three-levels"])
+def test_fq_batch_inv_sweeps_match_jax(header_lib, vfq_inverses, roots):
+    """fq_batch_inv's lanes, compiled by g++, driven through the product tree
+    of fixed_base.batch_inv_levels as the wrapper drives the kernels (the
+    down sweeps, the last level's sweep-invert-sweep lane, the up sweeps in
+    place over the prefixes), against vfq.batch_inv, at N = 4500 with p - 1
+    and 1: the wrapper's cut (one level of 282 ragged strided groups), and a
+    cut at 2 roots (levels of 282, 18 and 2 groups)."""
+    from uzkge_tpu_torch.msm.fixed_base import INV_ROOTS, batch_inv_levels
 
     N = 4500
-    vals = [v or 1 for v in _values(Q_MOD, N - 7, 9)]
-    vals[:2] = [Q_MOD - 1, 1]
-    a = _rows_of_v(_jax_v(vals))
-    levels, nroots = batch_inv_levels(N)
-    assert levels == [(N, 282)]
+    a = _rows_of_v(_jax_v(_inv_values()["sweep"]))
+    levels = batch_inv_levels(N, roots=roots or INV_ROOTS)
+    assert levels == ([(N, 282)] if roots is None else [(N, 282), (282, 18), (18, 2)])
     cur, down = a, []
-    for n_l, m_l in levels:
+    for n_l, m_l in levels[:-1]:
         pref, prod = np.zeros((n_l, 8), np.uint32), np.zeros((m_l, 8), np.uint32)
-        header_lib.fq_inv_prefix_n(cur.ctypes.data, pref.ctypes.data, prod.ctypes.data, m_l, n_l)
+        header_lib.fq_inv_down_n(cur.ctypes.data, pref.ctypes.data, prod.ctypes.data, m_l, n_l)
         down.append((cur, pref))
         cur = prod
-    inv = np.zeros((nroots, 8), np.uint32)
-    header_lib.fq_inv_fermat_n(inv.ctypes.data, cur.ctypes.data, nroots)
-    for (src, pref), (n_l, m_l) in zip(reversed(down), reversed(levels)):
-        header_lib.fq_inv_back_n(src.ctypes.data, pref.ctypes.data, inv.ctypes.data,
-                                 pref.ctypes.data, m_l, n_l)
+    n_l, m_l = levels[-1]
+    inv = np.zeros((n_l, 8), np.uint32)
+    header_lib.fq_inv_root_n(cur.ctypes.data, inv.ctypes.data, inv.ctypes.data, m_l, n_l)
+    for (src, pref), (n_l, m_l) in zip(reversed(down), reversed(levels[:-1])):
+        header_lib.fq_inv_up_n(src.ctypes.data, pref.ctypes.data, inv.ctypes.data,
+                               pref.ctypes.data, m_l, n_l)
         inv = pref
-    assert (inv == _rows_of_v(vfq.batch_inv(_jax_v(vals)))).all()
+    assert (inv == vfq_inverses["sweep"]).all()
 
 
 # ------------------------------------------- the query kernels' arithmetic
@@ -438,35 +503,54 @@ def test_query_pair_header_matches_jax(header_lib):
     assert (xo[0, 1] == x[0, 1 + H]).all() and (yo[0, 2] == y[0, 2]).all()  # pass-through
 
 
-@pytest.mark.parametrize("w", [8, 4, 2])
-def test_query_fold_header_matches_jax(header_lib, w):
-    """fb_fold_lane over groups of w consecutive projective points against the
-    JAX package's halving tree: the _fold8_kernel body for w = 8 (lazy mod-2p
-    values, compared mod p), padd_g over vfq for w = 4 and 2 (the
-    remainder's halving), identities among the points."""
-    from uzkge_tpu.ff.vfield import vfq
+def _jax_fold_tail(X, Y, Z):
+    """The JAX query's projective tail over (P, Kc, 8) buffers: the
+    _fold8_kernel body while 8 divides Kc, then the remainder's halving by
+    padd_g in afield (lazy [0, 2p) values)."""
+    from uzkge_tpu.ff.afield import afq_c
     from uzkge_tpu.msm.fixed_base import _fold8_kernel, padd_g
 
-    P, G = 2, 3
-    rs = np.random.default_rng(33 + w)
-    X, Y, Z = (_q_vals(rs, (P, G * w)) for _ in range(3))
-    ident = rs.random((P, G * w)) < 0.3
+    P, Kc = X.shape[:2]
+    pts = [_jv(t) for t in (X, Y, Z)]  # (16, P, Kc)
+    while Kc % 8 == 0:
+        lay = [t.reshape(16, P, Kc // 8, 8).transpose(0, 3, 1, 2) for t in pts]
+        out = [np.zeros((16, P, Kc // 8), np.uint32) for _ in range(3)]
+        _fold8_kernel(*lay, *out)
+        pts, Kc = out, Kc // 8
+    while Kc > 1:
+        h = Kc // 2
+        pts = padd_g(afq_c, tuple(t[..., :h] for t in pts), tuple(t[..., h:] for t in pts))
+        Kc = h
+    return [t[..., 0] for t in pts]
+
+
+@pytest.mark.parametrize("Kc", [1024, 128, 4, 2])
+def test_query_fold_header_matches_jax(header_lib, Kc):
+    """fb_fold's block loop (fb_fold_tile), compiled by g++ and run with its
+    threads in turn, blocks of 32 threads (several rounds of pairs per step
+    in a tile of 512), over the launches of fixed_base.fold_tiles (Kc = 1024:
+    tiles of 512, then 2; 128 = 8^2 * 2, and the remainders 4 and 2: one
+    launch),
+    against the JAX query's tail (the _fold8_kernel body, then padd_g over
+    the remainder) at P = 2, identities planted, compared mod p."""
+    from uzkge_tpu_torch.msm.fixed_base import fold_tiles
+
+    P = 2
+    rs = np.random.default_rng(33 + Kc)
+    X, Y, Z = (_q_vals(rs, (P, Kc)) for _ in range(3))
+    ident = rs.random((P, Kc)) < 0.3
     X[ident], Z[ident] = 0, 0
     Y[ident] = _u32(fq_ctx.to_mont_limbs([1]))[0]
-    out = [np.zeros((P, G, 8), np.uint32) for _ in range(3)]
-    header_lib.fb_fold_n(_p(X), _p(Y), _p(Z), *(_p(o) for o in out), P * G, w)
-    if w == 8:
-        lay = [_jv(t).reshape(16, P, G, 8).transpose(0, 3, 1, 2) for t in (X, Y, Z)]
-        want = [np.zeros((16, P, G), np.uint32) for _ in range(3)]
-        _fold8_kernel(*lay, *want)
-    else:
-        want = [_jv(t).reshape(16, P, G, w) for t in (X, Y, Z)]
-        while want[0].shape[-1] > 1:
-            h = want[0].shape[-1] // 2
-            want = padd_g(vfq, tuple(t[..., :h] for t in want), tuple(t[..., h:] for t in want))
-        want = [t[..., 0] for t in want]
-    for o, wv in zip(out, want):
-        got = tf.limbs_to_ints(o.view(np.int32))
+    want = _jax_fold_tail(X, Y, Z)
+    tiles = fold_tiles(Kc)
+    assert tiles == {1024: [512, 2], 128: [128], 4: [4], 2: [2]}[Kc]
+    for T in tiles:
+        out = [np.zeros((P, X.shape[1] // T, 8), np.uint32) for _ in range(3)]
+        header_lib.fb_fold_n(_p(X), _p(Y), _p(Z), *(_p(o) for o in out), P * X.shape[1] // T, T,
+                             32)
+        X, Y, Z = out
+    for o, wv in zip((X, Y, Z), want):
+        got = tf.limbs_to_ints(o.reshape(P, 8).view(np.int32))
         ref = tf.limbs_to_ints(_from_jv(wv).view(np.int32))
         assert [v % Q_MOD for v in got] == [v % Q_MOD for v in ref] and max(got) < Q_MOD
 

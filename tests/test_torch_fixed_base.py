@@ -173,11 +173,14 @@ def test_fq_batch_inv_matches_jax(N):
 
 
 def test_batch_inv_levels():
-    assert fb.batch_inv_levels(4096) == ([], 4096)
-    levels, roots = fb.batch_inv_levels(8 * 2**20)
-    assert levels == [(8 * 2**20, 2**19), (2**19, 2**15), (2**15, 2**11)] and roots == 2**11
-    levels, roots = fb.batch_inv_levels(70001)
-    assert levels == [(70001, 4376), (4376, 274)] and roots == 274
+    """The wrapper's cut: one launch (the last level alone) up to N =
+    INV_GROUP * INV_ROOTS = 2^21, three for the table build's 2^23."""
+    assert (fb.INV_GROUP, fb.INV_ROOTS) == (16, 2**17)
+    assert fb.batch_inv_levels(1) == [(1, 1)] and fb.batch_inv_levels(4097) == [(4097, 257)]
+    assert fb.batch_inv_levels(2**21) == [(2**21, 2**17)]
+    assert fb.batch_inv_levels(2**21 + 1) == [(2**21 + 1, 2**17 + 1), (2**17 + 1, 8193)]
+    assert fb.batch_inv_levels(8 * 2**20) == [(8 * 2**20, 2**19), (2**19, 2**15)]
+    assert fb.batch_inv_levels(70001, roots=256) == [(70001, 4376), (4376, 274), (274, 18)]
 
 
 def test_fp_mont_mul_matches_pallas_mul_kernel(interpret_pallas):  # noqa: F811
@@ -263,7 +266,7 @@ def test_fixed_base_kernels_match_plain(cuda_device):
         assert torch.equal(g, w)
     EZ = got[2].view(CH * K, 8)
     assert torch.equal(fb.fq_batch_inv(EZ), fb.fq_batch_inv_plain(EZ))
-    big = EZ.repeat(9, 1)  # N = 36864: one level of the product tree
+    big = EZ.repeat(9, 1)  # N = 36864
     assert torch.equal(fb.fq_batch_inv(big), fb.fq_batch_inv_plain(big))
     fr_a = tf.fr.to_mont_limbs(list(range(1, 4097)), cuda_device)
     fr_b = tf.fr.to_mont_limbs([R_MOD - k for k in range(1, 4097)], cuda_device)
@@ -275,3 +278,17 @@ def test_fixed_base_kernels_match_plain(cuda_device):
     table = fb.FixedBaseTable(pts, c=c, bits=bits, device=cuda_device).table
     want = fb.FixedBaseTable(pts, c=c, bits=bits, device="cpu").table
     assert torch.equal(table.cpu(), want)
+
+
+@pytest.mark.on_cuda
+@pytest.mark.parametrize("N", [1, 2, 4095, 4096, 4097, 2**21, 8 * 2**20])
+def test_fq_batch_inv_matches_plain(cuda_device, N):
+    """fq_batch_inv on the card against its plain version at N up to the
+    table build's 8,388,608 (one CUDA launch up to 2^21, three above), on
+    seeded canonical values with p - 1 and 1 among them."""
+    g = torch.Generator(device=cuda_device).manual_seed(N)
+    a = torch.randint(-(1 << 31), 1 << 31, (N, 8), dtype=torch.int32, device=cuda_device,
+                      generator=g)
+    a[:, 7] &= 0x0FFFFFFF  # below 2^252 < q, and nonzero with overwhelming probability
+    a[: min(N, 2)] = tf.fq.to_mont_limbs([Q_MOD - 1, 1][: min(N, 2)], cuda_device)
+    assert torch.equal(fb.fq_batch_inv(a), fb.fq_batch_inv_plain(a))

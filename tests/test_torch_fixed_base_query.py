@@ -9,15 +9,18 @@ values out of the JAX package's projective fold, which lives in afield's lazy
     fb_pair_den_plain / fq_batch_inv / fb_pair_combine_plain against
     _affine_level (H >= 128: _pair_den_kernel and _pair_combine_kernel;
     H < 128: their small variants), fb_fold_plain against _fold8_kernel and
-    the XLA remainder (fq_batch_inv against pbatch_inv_fq_fast, through the
-    same interpreter, is tests/test_torch_fixed_base_inv.py);
+    the XLA remainder, and the whole projective tail (fold_tail) against
+    _fold8 levels and the remainder (fq_batch_inv against
+    pbatch_inv_fq_fast, through the same interpreter, is
+    tests/test_torch_fixed_base_inv.py);
   * the digit recode against recode_digits;
   * FixedBaseTable.msm_mont against the JAX package's CPU FixedBaseTable.
     msm_mont and against the host Pippenger, as affine points, at (n, c,
     bits) = (32, 4, 30) and (8, 8, 254), with all-zero rows, rows of the
     largest scalar, single nonzero entries and P = 1, 3 and 9;
   * the wrappers' argument checks, and on a card (marker on_cuda) the four
-    query kernels against their plain versions.
+    query kernels against their plain versions, the fold at P = 1, 2, 5 and
+    8 over a tail of one launch and one of two.
 Inputs come from numpy with fixed seeds.  JAX is imported inside the tests
 that use it, so that the on_cuda test also runs where JAX is absent
 (`pytest --noconftest -m on_cuda`).
@@ -242,6 +245,32 @@ def test_fold_remainder_matches_jax(Kc):
         assert _mod_p(g) == _mod_p(_port(w))
 
 
+@pytest.mark.parametrize("Kc", [2, 4, 16, 128, 1024])
+def test_fold_tail_matches_jax(mini_pallas, Kc):
+    """fold_tail (fb_fold over fold_tiles(Kc); on the CPU the plain trees)
+    and its plain version fold_tail_plain against the JAX query's tail at
+    P = 2: _fold8 while 8 divides Kc, then the remainder's padd_g in afield
+    (:1164-1174), compared mod p."""
+    from uzkge_tpu.ff.afield import afq_c
+    from uzkge_tpu.msm.fixed_base import _fold8, padd_g
+
+    pts = _proj_inputs(2, Kc, 50 + Kc)
+    X, Y, Z = (_jax_v(t) for t in pts)
+    n = Kc
+    while n % 8 == 0:
+        X, Y, Z = _fold8(X, Y, Z)
+        n //= 8
+    while n > 1:
+        h = n // 2
+        X, Y, Z = padd_g(afq_c, (X[:, :, :h], Y[:, :, :h], Z[:, :, :h]),
+                         (X[:, :, h:], Y[:, :, h:], Z[:, :, h:]))
+        n = h
+    assert len(mini_pallas) == {2: 0, 4: 0, 16: 1, 128: 2, 1024: 3}[Kc]
+    got = fb.fold_tail(*pts)
+    for g, p, w in zip(got, fb.fold_tail_plain(*pts), (X, Y, Z)):
+        assert g.shape == (2, 8) and _mod_p(g) == _mod_p(_port(w)[:, 0]) and torch.equal(g, p)
+
+
 # ---------------------------------------------------------------- recode
 
 
@@ -388,6 +417,17 @@ def test_query_kernels_check_arguments():
         fb.fb_fold(x, x, x, 16)  # w > Kc
     with pytest.raises(ValueError):
         fb.fb_fold(x, x, x[:, :4].contiguous(), 2)
+    big = torch.zeros(1, 2048, 8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fb.fb_fold(big, big, big, 1024)  # w > FOLD_TILE
+    with pytest.raises(ValueError):
+        fb.fb_fold(big, big, big, 1)
+    with pytest.raises(ValueError):
+        fb.fold_tail(x[:, :6].contiguous(), x[:, :6].contiguous(), x[:, :6].contiguous())
+    with pytest.raises(TypeError):
+        fb.fold_tail(x, x, x.to(torch.int64))
+    assert fb.fold_tiles(1) == [] and fb.fold_tiles(2**18) == [512, 512]
+    assert fb.fold_tiles(65536) == [512, 128] and fb.fold_tiles(2**19) == [512, 512, 2]
     tbl = fb.FixedBaseTable(_case_points(32), c=4, bits=30, device="cpu")
     with pytest.raises(ValueError):
         tbl.query(torch.zeros(1, 16, 8, dtype=torch.int32))  # n differs
@@ -425,7 +465,7 @@ def test_query_kernels_match_plain(cuda_device):
     for g, w in zip(fb.fb_pair_combine(x, y, dinv, flags),
                     fb.fb_pair_combine_plain(x, y, dinv, flags)):
         assert torch.equal(g, w)
-    for Kc, w in ((64, 8), (4, 4), (2, 2)):
+    for Kc, w in ((64, 8), (4, 4), (2, 2), (512, 512), (256, 128)):
         pts = tuple(t.to(cuda_device) for t in _proj_inputs(P, Kc, Kc))
         for g, p in zip(fb.fb_fold(*pts, w), fb.fb_fold_plain(*pts, w)):
             assert torch.equal(g, p)
@@ -437,3 +477,18 @@ def test_query_kernels_match_plain(cuda_device):
     rows = _scalar_rows(32, 30, 11)
     got = fb.FixedBaseTable(pts, c=4, bits=30, device=cuda_device).msm_ints(rows)
     assert got == fb.FixedBaseTable(pts, c=4, bits=30, device="cpu").msm_ints(rows)
+
+
+@pytest.mark.on_cuda
+@pytest.mark.parametrize("P", [1, 2, 5, 8])
+def test_fold_tail_matches_plain(cuda_device, P):
+    """fold_tail on the card against the plain trees on the same inputs, at
+    the proof's batches, over Kc = 64 (one launch) and Kc = 1024 (two)."""
+    for Kc, launches in ((64, 1), (1024, 2)):
+        pts = tuple(t.to(cuda_device) for t in _proj_inputs(P, Kc, P * Kc))
+        before = kernels.LAUNCHES["fb_fold"]
+        got = fb.fold_tail(*pts)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fb_fold"] - before == launches
+        for g, p in zip(got, fb.fold_tail_plain(*pts)):
+            assert torch.equal(g, p)

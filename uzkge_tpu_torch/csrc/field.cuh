@@ -19,7 +19,7 @@
 #define ZK_HD inline
 #endif
 
-// Modulus traits: p, -p^-1 mod 2^32, and 3*b = 9 in Montgomery form.
+// Modulus traits: p and -p^-1 mod 2^32; Fq also R mod q.
 struct Fr {
   ZK_HD static uint32_t p(int i) {
     const uint32_t P[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
@@ -40,11 +40,6 @@ struct Fq {
     const uint32_t O[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
                            0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
     return O[i];
-  }
-  ZK_HD static uint32_t b3(int i) {  // 9 * R mod q
-    const uint32_t B[8] = {0x410d7ff7u, 0xf60647ceu, 0xd31bd011u, 0x2f3d6f4du,
-                           0x3940c6d1u, 0x2943337eu, 0xa7e39857u, 0x1d9598e8u};
-    return B[i];
   }
 };
 
@@ -139,10 +134,24 @@ ZK_HD void fp_copy(uint32_t r[8], const uint32_t a[8]) {
   for (int j = 0; j < 8; j++) r[j] = a[j];
 }
 
+// r = 9a = 8a + a by three doublings and an addition: the product by b3 = 3b
+// = 9 of the curve formulas without a Montgomery product.  Every step is a
+// canonical fp_add, so r equals a * (9R) * R^-1 limb for limb.  r may alias a.
+template <class F>
+ZK_HD void fp_mul9(uint32_t r[8], const uint32_t a[8]) {
+  uint32_t t[8];
+  fp_add<F>(t, a, a);
+  fp_add<F>(t, t, t);
+  fp_add<F>(t, t, t);
+  fp_add<F>(r, t, a);
+}
+
 // ---------------------------------------------------------------- G1 over Fq
 // Projective (X : Y : Z); the identity is (0 : 1 : 0).  Complete formulas of
 // Renes-Costello-Batina (eprint 2015/1060) for a = 0, b3 = 9: no branches for
-// the identity or for doubling, as in msm/msm.py::_madd / _padd.
+// the identity or for doubling, as in msm/msm.py::_madd / _padd.  The two
+// products by b3 of each formula are fp_mul9, so a mixed addition costs 11
+// Montgomery products and a projective one 12.
 
 struct G1Proj {
   uint32_t x[8], y[8], z[8];
@@ -160,9 +169,7 @@ ZK_HD void g1_set_identity(G1Proj &p) {
 // RCB Alg. 8: projective + affine (x2, y2).  `out` may alias `p`.
 ZK_HD void g1_madd(G1Proj &out, const G1Proj &p, const uint32_t x2[8],
                    const uint32_t y2[8]) {
-  uint32_t b3[8], t0[8], t1[8], t2[8], t3[8], t4[8], X3[8], Y3[8], Z3[8];
-#pragma unroll
-  for (int j = 0; j < 8; j++) b3[j] = Fq::b3(j);
+  uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], X3[8], Y3[8], Z3[8];
   fp_mul<Fq>(t0, p.x, x2);
   fp_mul<Fq>(t1, p.y, y2);
   fp_add<Fq>(t3, x2, y2);
@@ -176,10 +183,10 @@ ZK_HD void g1_madd(G1Proj &out, const G1Proj &p, const uint32_t x2[8],
   fp_add<Fq>(Y3, Y3, p.x);
   fp_add<Fq>(X3, t0, t0);
   fp_add<Fq>(t0, X3, t0);
-  fp_mul<Fq>(t2, b3, p.z);
+  fp_mul9<Fq>(t2, p.z);
   fp_add<Fq>(Z3, t1, t2);
   fp_sub<Fq>(t1, t1, t2);
-  fp_mul<Fq>(Y3, b3, Y3);
+  fp_mul9<Fq>(Y3, Y3);
   fp_mul<Fq>(X3, t4, Y3);
   fp_mul<Fq>(t2, t3, t1);
   fp_sub<Fq>(X3, t2, X3);
@@ -196,9 +203,7 @@ ZK_HD void g1_madd(G1Proj &out, const G1Proj &p, const uint32_t x2[8],
 
 // RCB Alg. 7: projective + projective.  `out` may alias either input.
 ZK_HD void g1_padd(G1Proj &out, const G1Proj &p, const G1Proj &q) {
-  uint32_t b3[8], t0[8], t1[8], t2[8], t3[8], t4[8], X3[8], Y3[8], Z3[8];
-#pragma unroll
-  for (int j = 0; j < 8; j++) b3[j] = Fq::b3(j);
+  uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], X3[8], Y3[8], Z3[8];
   fp_mul<Fq>(t0, p.x, q.x);
   fp_mul<Fq>(t1, p.y, q.y);
   fp_mul<Fq>(t2, p.z, q.z);
@@ -219,10 +224,10 @@ ZK_HD void g1_padd(G1Proj &out, const G1Proj &p, const G1Proj &q) {
   fp_sub<Fq>(Y3, X3, Y3);
   fp_add<Fq>(X3, t0, t0);
   fp_add<Fq>(t0, X3, t0);
-  fp_mul<Fq>(t2, b3, t2);
+  fp_mul9<Fq>(t2, t2);
   fp_add<Fq>(Z3, t1, t2);
   fp_sub<Fq>(t1, t1, t2);
-  fp_mul<Fq>(Y3, b3, Y3);
+  fp_mul9<Fq>(Y3, Y3);
   fp_mul<Fq>(X3, t4, Y3);
   fp_mul<Fq>(t2, t3, t1);
   fp_sub<Fq>(X3, t2, X3);

@@ -18,17 +18,22 @@
 //   the output is (K, 8) contiguous, so a warp's 32 lanes store 1 KB
 //   together.
 // fq_batch_inv replaces _prod_kernel (:274) and _inv_kernel (:283), the
-//   product-tree inversion of pbatch_inv_fq.  The TPU walks a 32-long scan
-//   axis inside one VMEM block; here each thread owns one strided group
-//   {t, t + M, ...} of G = 16 elements (consecutive threads touch consecutive
-//   rows: coalesced), so no block has to see another's data.  Three kinds of
-//   launch: fq_inv_prefix (prefix products + group product) per tree level
-//   down to at most 4096 roots, fq_inv_roots (one Fermat inversion per root,
-//   ~380 serial products: latency-bound, the reason the tree is cut at a few
-//   thousand roots rather than one), and fq_inv_back per level (two products
-//   per element).  Bound: 3 Montgomery products per element against 64 B of
-//   traffic per element: multiplies, by a margin.  The wrapper counts one
-//   launch of the kernel per inversion.
+//   product-tree inversion of pbatch_inv_fq, and _prefix_kernel (:334),
+//   _invback_kernel (:345) and _fermat_bits_kernel (:355) of
+//   pbatch_inv_fq_fast.  The TPU walks a 32-long scan axis inside one VMEM
+//   block and inverts the roots by a Fermat power; here each thread owns one
+//   strided group {t, t + M, ...} of G elements (consecutive threads touch
+//   consecutive rows: coalesced), so no block has to see another's data.
+//   Three kinds of launch: fq_inv_down (prefix products and group product)
+//   per tree level, fq_inv_root for the last level, where each thread sweeps
+//   its group forward, inverts the group's product by safegcd (fq_inv_mont,
+//   ~18 rounds of 30 divsteps: a dependent chain many times shorter than
+//   the ~375 products of a Fermat power) and sweeps back, and fq_inv_up per
+//   level (two products per element).  With the root that cheap, the tree
+//   stops at up to INV_ROOTS groups: one launch up to N = INV_ROOTS * G,
+//   three for the table build's 8.4M.  Bound: 3 Montgomery products per
+//   element against 64 B of traffic per element: multiplies, by a margin.
+//   The wrapper counts one launch of the kernel per inversion.
 #include <cuda_runtime.h>
 
 #include "fixed_base.cuh"
@@ -59,31 +64,25 @@ fb_mult_chunk_kernel(const uint32_t *__restrict__ tx, const uint32_t *__restrict
                      fy + o, fz + o, CH, (size_t)K);
 }
 
-// pref may alias out in fq_inv_back_kernel (the in-place backward sweep), so
-// neither carries __restrict__ there.
-__global__ void fq_inv_prefix_kernel(const uint32_t *__restrict__ a, uint32_t *__restrict__ pref,
-                                     uint32_t *__restrict__ prod, long long M, long long N) {
+// pref may alias out in fq_inv_up_kernel and fq_inv_root_kernel (the
+// in-place backward sweep), so neither carries __restrict__ there.
+__global__ void fq_inv_down_kernel(const uint32_t *__restrict__ a, uint32_t *__restrict__ pref,
+                                   uint32_t *__restrict__ prod, long long M, long long N) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= M) return;
-  fq_inv_prefix_group(a, pref, prod, t, M, N);
+  if (t < M) fq_inv_down_lane(a, pref, prod, t, M, N);
 }
 
-__global__ void fq_inv_roots_kernel(const uint32_t *__restrict__ a, uint32_t *__restrict__ out,
-                                    long long N) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  uint32_t v[8];
-  ld_fp(v, a + i * 8);
-  fq_inv_fermat(v, v);
-  st_fp(out + i * 8, v);
+__global__ void fq_inv_root_kernel(const uint32_t *__restrict__ a, uint32_t *pref, uint32_t *out,
+                                   long long M, long long N) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < M) fq_inv_root_lane(a, pref, out, t, M, N);
 }
 
-__global__ void fq_inv_back_kernel(const uint32_t *__restrict__ a, const uint32_t *pref,
-                                   const uint32_t *__restrict__ pinv, uint32_t *out, long long M,
-                                   long long N) {
+__global__ void fq_inv_up_kernel(const uint32_t *__restrict__ a, const uint32_t *pref,
+                                 const uint32_t *__restrict__ pinv, uint32_t *out, long long M,
+                                 long long N) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= M) return;
-  fq_inv_back_group(a, pref, pinv, out, t, M, N);
+  if (t < M) fq_inv_up_lane(a, pref, pinv, out, t, M, N);
 }
 
 unsigned blocks_for(long long lanes, int threads) {
@@ -112,25 +111,26 @@ extern "C" int fb_mult_chunk_launch(const void *tx, const void *ty, const void *
   return (int)cudaGetLastError();
 }
 
-extern "C" int fq_inv_prefix_launch(const void *a, void *pref, void *prod, long long N,
-                                    long long M, void *stream) {
+extern "C" int fq_inv_down_launch(const void *a, void *pref, void *prod, long long N, long long M,
+                                  void *stream) {
   if (N < 1 || M < 1 || M > N) return (int)cudaErrorInvalidValue;
-  fq_inv_prefix_kernel<<<blocks_for(M, 128), 128, 0, (cudaStream_t)stream>>>(
+  fq_inv_down_kernel<<<blocks_for(M, 128), 128, 0, (cudaStream_t)stream>>>(
       (const uint32_t *)a, (uint32_t *)pref, (uint32_t *)prod, M, N);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fq_inv_roots_launch(const void *a, void *out, long long N, void *stream) {
-  if (N < 1) return (int)cudaErrorInvalidValue;
-  fq_inv_roots_kernel<<<blocks_for(N, 64), 64, 0, (cudaStream_t)stream>>>(
-      (const uint32_t *)a, (uint32_t *)out, N);
+extern "C" int fq_inv_root_launch(const void *a, void *pref, void *out, long long N, long long M,
+                                  void *stream) {
+  if (N < 1 || M < 1 || M > N) return (int)cudaErrorInvalidValue;
+  fq_inv_root_kernel<<<blocks_for(M, 128), 128, 0, (cudaStream_t)stream>>>(
+      (const uint32_t *)a, (uint32_t *)pref, (uint32_t *)out, M, N);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fq_inv_back_launch(const void *a, const void *pref, const void *pinv, void *out,
-                                  long long N, long long M, void *stream) {
+extern "C" int fq_inv_up_launch(const void *a, const void *pref, const void *pinv, void *out,
+                                long long N, long long M, void *stream) {
   if (N < 1 || M < 1 || M > N) return (int)cudaErrorInvalidValue;
-  fq_inv_back_kernel<<<blocks_for(M, 128), 128, 0, (cudaStream_t)stream>>>(
+  fq_inv_up_kernel<<<blocks_for(M, 128), 128, 0, (cudaStream_t)stream>>>(
       (const uint32_t *)a, (const uint32_t *)pref, (const uint32_t *)pinv, (uint32_t *)out, M, N);
   return (int)cudaGetLastError();
 }

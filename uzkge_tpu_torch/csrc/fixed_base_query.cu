@@ -21,11 +21,29 @@
 //   Montgomery products.  Bound: bytes (232 B per pair against 792 32-bit
 //   multiplies: at the card's rates the bytes take longer).
 // fb_fold replaces _fold8_kernel (:680) and the XLA halving of the remainder
-//   (:1164-1174): one thread per (p, group of w consecutive points) runs the
-//   halving tree of complete projective additions, w - 1 of them.  Bound:
-//   operations (12 products per addition against 96 B per point).  Values
-//   stay canonical, where the TPU kept afield's lazy [0, 2p).
+//   (:1164-1174): block b folds the tile of T consecutive points b*T ..
+//   b*T + T - 1 (T a power of two up to 512 dividing each MSM's count) to
+//   one, by 8-to-1 halving trees while 8 divides the count, then one tree
+//   over the 2 or 4 left.  Bound: operations (12 products per addition
+//   against 96 B per point), but a thread's additions are a dependent chain
+//   of ~20 us each, so the time is the depth of the tree in additions, and
+//   the design cuts that depth: the tree runs across threads.  In each
+//   halving step thread t adds pairs t, t + B, ... (fb_fold_pair), the first
+//   step from device memory, later ones from the T / 2 sums in shared memory
+//   (X, Y and Z in separate planes), each round of B pairs reading before a
+//   barrier and rewriting after it (fb_fold_tile, which the CPU suite also
+//   runs).  The launch takes the widest block B that lets every tile's
+//   block be resident at once (one wave): at P = 8 MSMs of 65,536 points,
+//   1024 blocks of 64 threads, 13 additions deep, then one block of 64 per
+//   MSM over the 128 left, 7 deep; a thread per group of 8 ran 7 additions
+//   in a row per 8-to-1 fold, 36 in all, over several waves.  Values stay
+//   canonical, where the TPU kept afield's lazy [0, 2p).
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
+#include <vector>
 
 #include "fixed_base_query.cuh"
 
@@ -56,12 +74,67 @@ fb_pair_combine_kernel(const uint32_t *__restrict__ x, const uint32_t *__restric
   if (t < P * H) fb_pair_combine_lane(x, y, dinv, flags, xo, yo, info, t, H);
 }
 
-__global__ void __launch_bounds__(128)
+#define FB_FOLD_TILE 512  // the largest tile: 8^3 points
+#define FB_FOLD_THREADS 256  // the widest block
+
+// The CUDA block as fb_fold_tile sees it: the calling thread and its point.
+struct FoldBlock {
+  int B;
+  G1Proj r;
+  template <class F> ZK_HD void each(F f) {
+#ifdef __CUDA_ARCH__
+    f((int)threadIdx.x, r);
+#endif
+  }
+  ZK_HD void sync() {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+};
+
+__global__ void __launch_bounds__(FB_FOLD_THREADS, 2)
 fb_fold_kernel(const uint32_t *__restrict__ X, const uint32_t *__restrict__ Y,
                const uint32_t *__restrict__ Z, uint32_t *__restrict__ oX,
-               uint32_t *__restrict__ oY, uint32_t *__restrict__ oZ, long long groups, int w) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // g = p * G + group
-  if (g < groups) fb_fold_lane(X, Y, Z, oX, oY, oZ, (size_t)g, w);
+               uint32_t *__restrict__ oY, uint32_t *__restrict__ oZ, int T) {
+  extern __shared__ uint4 fold_smem[];  // three planes of T / 2 points
+  uint32_t *sX = reinterpret_cast<uint32_t *>(fold_smem);
+  uint32_t *sY = sX + (T / 2) * 8, *sZ = sY + (T / 2) * 8;
+  FoldBlock blk;
+  blk.B = (int)blockDim.x;
+  fb_fold_tile(blk, X, Y, Z, sX, sY, sZ, oX, oY, oZ, (long long)blockIdx.x, T);
+}
+
+// The widest block (a power of two from 32 to min(T / 2, 256)) at which all
+// `tiles` blocks are resident at once, or the widest if none is.  The blocks
+// resident on the card at each width are queried once per (device, T).
+int fold_threads(long long tiles, int T) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, std::vector<long long>> resident;
+  int widest = 32;
+  while (widest * 2 <= T / 2 && widest * 2 <= FB_FOLD_THREADS) widest *= 2;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::vector<long long> at;  // at[i]: blocks of 32 << i threads resident at once
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = resident.find({dev, T});
+    if (it == resident.end()) {
+      int sms = 0;
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      std::vector<long long> v;
+      for (int b = 32; b <= widest; b *= 2) {
+        int per_sm = 0;
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fb_fold_kernel, b, (size_t)T * 48);
+        v.push_back((long long)per_sm * sms);
+      }
+      it = resident.emplace(std::make_pair(dev, T), v).first;
+    }
+    at = it->second;
+  }
+  for (int i = (int)at.size() - 1; i >= 0; i--)
+    if (at[i] >= tiles) return 32 << i;
+  return widest;
 }
 
 unsigned blocks_for(long long lanes, int threads) {
@@ -97,12 +170,13 @@ extern "C" int fb_pair_combine_launch(const void *x, const void *y, const void *
   return (int)cudaGetLastError();
 }
 
-// groups = P * (Kc / w): the output's elements
+// tiles = P * Kc / T: the output's elements
 extern "C" int fb_fold_launch(const void *X, const void *Y, const void *Z, void *oX, void *oY,
-                              void *oZ, long long groups, int w, void *stream) {
-  if (groups < 1 || (w != 2 && w != 4 && w != 8)) return (int)cudaErrorInvalidValue;
-  fb_fold_kernel<<<blocks_for(groups, 128), 128, 0, (cudaStream_t)stream>>>(
+                              void *oZ, long long tiles, int T, void *stream) {
+  if (tiles < 1 || T < 2 || T > FB_FOLD_TILE || (T & (T - 1))) return (int)cudaErrorInvalidValue;
+  fb_fold_kernel<<<(unsigned)tiles, fold_threads(tiles, T), (size_t)T * 48,
+                   (cudaStream_t)stream>>>(
       (const uint32_t *)X, (const uint32_t *)Y, (const uint32_t *)Z, (uint32_t *)oX,
-      (uint32_t *)oY, (uint32_t *)oZ, groups, w);
+      (uint32_t *)oY, (uint32_t *)oZ, T);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,9 @@
 // table of msm/fixed_base.py), as __host__ __device__ code on top of
 // fixed_base.cuh.
 //
-// The kernels of fixed_base_query.cu run one leaf, pair or group per thread
-// through these functions, thread t doing lane t; g++ compiles the same
-// functions for the CPU test suite (tests/test_torch_field.py), which holds
+// The kernels of fixed_base_query.cu run one leaf or pair per thread through
+// these functions (fb_fold: a block per tile through fb_fold_tile); g++
+// compiles the same functions for the CPU test suite (tests/test_torch_field.py), which holds
 // them against the JAX package's kernel bodies.  Elements are 8 x 32-bit little-endian limbs in
 // Fq Montgomery form; identity flags and pair flags are int32.
 #pragma once
@@ -93,41 +93,80 @@ ZK_HD void fb_pair_combine_lane(const uint32_t *x, const uint32_t *y, const uint
   info[t] = (i1 && i2) || bad;
 }
 
-// fb_fold, one group: the halving tree over the W points a, a + s, ...,
-// a + (W - 1) s of the projective arrays X, Y, Z (element index, 8 words
-// each): level one adds point j and point j + W/2 of the group, and so on
-// down, by complete projective additions (RCB Alg. 7).  Its left half is the
-// tree over the group's even members, its right half over the odd ones, so
-// that G(a, s, W) = G(a, 2s, W/2) + G(a + s, 2s, W/2), left operand first as
-// in the TPU's _fold8_kernel.  W is 1, 2, 4 or 8.
-template <int W>
-ZK_HD void fb_fold_tree(G1Proj &out, const uint32_t *X, const uint32_t *Y, const uint32_t *Z,
-                        size_t a, size_t s) {
-  if constexpr (W == 1) {
-    ld_fp(out.x, X + a * 8);
-    ld_fp(out.y, Y + a * 8);
-    ld_fp(out.z, Z + a * 8);
-  } else {
-    G1Proj left;
-    fb_fold_tree<W / 2>(left, X, Y, Z, a, 2 * s);
-    fb_fold_tree<W / 2>(out, X, Y, Z, a + s, 2 * s);
-    g1_padd(out, left, out);
-  }
+// fb_fold: the width of the next fold of n points: 8-to-1 while 8 divides n
+// (the TPU's _fold8 levels), then the 2 or 4 left in one halving tree (the
+// XLA remainder).
+ZK_HD int fb_fold_width(long long n) { return n % 8 == 0 ? 8 : (int)n; }
+
+// fb_fold, pair q of one halving step over points in groups of w = 2h: the
+// complete projective addition (RCB Alg. 7) of point g*w + j and point
+// g*w + j + h of (X, Y, Z), g = q / h and j = q % h, left operand first, into
+// `out`.  The step's sums are point q of the next, in groups of h; log2(w)
+// steps make each group of w one point, whose tree over the group's even
+// members is its left operand and the odd members' its right, as in the
+// TPU's _fold8_kernel: G(a, s, W) = G(a, 2s, W/2) + G(a + s, 2s, W/2).
+ZK_HD void fb_fold_pair(G1Proj &out, const uint32_t *X, const uint32_t *Y, const uint32_t *Z,
+                        long long q, int h) {
+  const long long i = (q / h) * 2 * h + q % h;
+  G1Proj a, b;
+  ld_fp(a.x, X + i * 8);
+  ld_fp(a.y, Y + i * 8);
+  ld_fp(a.z, Z + i * 8);
+  ld_fp(b.x, X + (i + h) * 8);
+  ld_fp(b.y, Y + (i + h) * 8);
+  ld_fp(b.z, Z + (i + h) * 8);
+  g1_padd(out, a, b);
 }
 
-// fb_fold, group g of w consecutive points (w in {2, 4, 8}) into element g of
-// (oX, oY, oZ).
-ZK_HD void fb_fold_lane(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX,
-                        uint32_t *oY, uint32_t *oZ, size_t g, int w) {
-  G1Proj r;
-  const size_t a = g * (size_t)w;
-  if (w == 8)
-    fb_fold_tree<8>(r, X, Y, Z, a, 1);
-  else if (w == 4)
-    fb_fold_tree<4>(r, X, Y, Z, a, 1);
-  else
-    fb_fold_tree<2>(r, X, Y, Z, a, 1);
-  st_fp(oX + g * 8, r.x);
-  st_fp(oY + g * 8, r.y);
-  st_fp(oZ + g * 8, r.z);
+ZK_HD void st_point(uint32_t *X, uint32_t *Y, uint32_t *Z, long long q, const G1Proj &p) {
+  st_fp(X + q * 8, p.x);
+  st_fp(Y + q * 8, p.y);
+  st_fp(Z + q * 8, p.z);
+}
+
+// fb_fold, one tile: block `tile` folds points tile*T .. tile*T + T - 1 of
+// (X, Y, Z) (T a power of two) to point `tile` of (oX, oY, oZ), by halving
+// steps of fb_fold_width.  The block is `blk`: blk.B threads, blk.each(f)
+// calls f(t, r) for its threads t, r being thread t's point, and blk.sync()
+// is the barrier between them.  On the card each thread runs this with
+// each() calling f for itself alone (fb_fold_kernel); the CPU suite runs it
+// once per block with each() looping over t and a no-op sync().  In each
+// step thread t adds pairs t, t + B, ...: the first step from (X, Y, Z),
+// later ones from the T / 2 sums in (sX, sY, sZ), each round of B pairs read
+// before a barrier and stored after it (pair q reads points >= q, so a
+// round's sums land below the next round's inputs).
+template <class Block>
+ZK_HD void fb_fold_tile(Block &blk, const uint32_t *__restrict__ X,
+                        const uint32_t *__restrict__ Y, const uint32_t *__restrict__ Z,
+                        uint32_t *sX, uint32_t *sY, uint32_t *sZ, uint32_t *__restrict__ oX,
+                        uint32_t *__restrict__ oY, uint32_t *__restrict__ oZ, long long tile,
+                        int T) {
+  const long long base = tile * T * 8;
+  const int B = blk.B;
+  int n = T, w = fb_fold_width(T);
+  blk.each([&](int t, G1Proj &r) {  // the first step: no one reads (sX, sY, sZ) yet
+    for (int q = t; q < n / 2; q += B) {
+      fb_fold_pair(r, X + base, Y + base, Z + base, q, w / 2);
+      if (n > 2) st_point(sX, sY, sZ, q, r);
+    }
+  });
+  for (;;) {
+    n /= 2;  // the points left, in (sX, sY, sZ) unless n == 1 (thread 0's r)
+    w /= 2;
+    if (w == 1) w = fb_fold_width(n);
+    if (n == 1) break;
+    blk.sync();
+    for (int q0 = 0; q0 < n / 2; q0 += B) {
+      blk.each([&](int t, G1Proj &r) {
+        if (q0 + t < n / 2) fb_fold_pair(r, sX, sY, sZ, q0 + t, w / 2);
+      });
+      blk.sync();
+      blk.each([&](int t, G1Proj &r) {
+        if (q0 + t < n / 2 && n > 2) st_point(sX, sY, sZ, q0 + t, r);
+      });
+    }
+  }
+  blk.each([&](int t, G1Proj &r) {
+    if (t == 0) st_point(oX, oY, oZ, tile, r);
+  });
 }

@@ -34,6 +34,9 @@ LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
             "fp_mont_mul": 0, "fb_bases": 0, "fb_mult_chunk": 0, "fq_batch_inv": 0,
             "fb_select": 0, "fb_pair_den": 0, "fb_pair_combine": 0, "fb_fold": 0,
             "scan_leaf_reduce": 0, "scan_proj_reduce": 0}
+# calls of each C entry point, one CUDA kernel launch each (fq_batch_inv's
+# three kinds of launch apart): counted by launch(), reset by reset_launches()
+CALLS = {}
 
 _lib = None
 
@@ -53,18 +56,18 @@ _SIGNATURES = {
     "fb_bases_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # tx, ty, tz, bx, by, ox, oy, oz, fx, fy, fz, K, CH, stream
     "fb_mult_chunk_launch": [_P] * 11 + [_L, _I, _P],
-    # the three launches of one fq_batch_inv: a, pref, prod, N, M, stream;
-    # a, out, N, stream; a, pref, pinv, out, N, M, stream
-    "fq_inv_prefix_launch": [_P, _P, _P, _L, _L, _P],
-    "fq_inv_roots_launch": [_P, _P, _L, _P],
-    "fq_inv_back_launch": [_P, _P, _P, _P, _L, _L, _P],
+    # the three kinds of launch of one fq_batch_inv: a, pref, prod, N, M,
+    # stream; a, pref, out, N, M, stream; a, pref, pinv, out, N, M, stream
+    "fq_inv_down_launch": [_P, _P, _P, _L, _L, _P],
+    "fq_inv_root_launch": [_P, _P, _P, _L, _L, _P],
+    "fq_inv_up_launch": [_P, _P, _P, _P, _L, _L, _P],
     # table, digits, x, y, inf, P, K, D, stream
     "fb_select_launch": [_P] * 5 + [_L, _L, _I, _P],
     # x, inf, den, flags, P, H, stream
     "fb_pair_den_launch": [_P] * 4 + [_L, _L, _P],
     # x, y, dinv, flags, xo, yo, info, P, H, stream
     "fb_pair_combine_launch": [_P] * 7 + [_L, _L, _P],
-    # X, Y, Z, oX, oY, oZ, groups, w, stream
+    # X, Y, Z, oX, oY, oZ, tiles, T, stream
     "fb_fold_launch": [_P] * 6 + [_L, _I, _P],
     # ax, ay, digits, ox, oy, oz, P, K, n, S, stream
     "scan_leaf_reduce_launch": [_P] * 6 + [_L, _L, _L, _I, _P],
@@ -76,6 +79,7 @@ _SIGNATURES = {
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    CALLS.clear()
 
 
 def _nvcc() -> str:
@@ -149,6 +153,7 @@ def launch(name: str, *args):
     rc = getattr(library(), name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
+    CALLS[name] = CALLS.get(name, 0) + 1
 
 
 def use_kernel(dev: torch.device, name: str) -> bool:

@@ -37,10 +37,12 @@ form), then runs four more kernels (csrc/fixed_base_query.cu):
     dens (the TPU's pbatch_inv_fq_fast: _prefix_kernel, _invback_kernel,
     _fermat_bits_kernel), fb_pair_combine (the affine sums;
     _pair_combine_kernel and its small variant);
-  * fb_fold: projective 8-to-1 halving trees of complete additions down to
-    fewer than 8 points per MSM, then one halving tree over the rest
-    (_fold8_kernel and the XLA remainder), so that one projective point per
-    MSM reaches the host (`_extract_host`).
+  * fb_fold: each tile of up to 512 consecutive projective points to one, by
+    8-to-1 halving trees of complete additions, then one halving tree over
+    the 2 or 4 left (_fold8_kernel and the XLA remainder), the tree spread
+    over a block's threads; `fold_tail` runs it over tiles of 512, then once
+    more over what is left, so that one projective point per MSM reaches the
+    host (`_extract_host`).
 
 The chain MSM (`msm_chain`, the per-device MSM of parallel/sharded.py)
 keeps no table: every call builds the doubling chain 2^k * P_i, k < 256, with
@@ -77,7 +79,8 @@ from ..ff.host_field import Fq
 from .msm import _identity_w, _madd_w, _padd_w
 
 INV_GROUP = 16  # elements per strided group of one batch-inversion level
-INV_ROOTS = 4096  # at most this many roots are inverted by Fermat
+INV_ROOTS = 1 << 17  # at most this many groups in the last level, each inverting its product
+FOLD_TILE = 512  # the largest tile fb_fold folds in one block: 8^3 points
 AFFINE_LEVELS = 3  # batch-affine levels of a query, then projective folds
 INF1, INF2, BAD = 1, 2, 4  # pair flags: first / second point the identity; x1 == x2
 SCAN_IL = 2  # interleaved running sums per scan lane (the TPU kernels' IL)
@@ -160,16 +163,40 @@ def fb_pair_combine_plain(x, y, dinv, flags):
     return lower(xo), lower(yo), ((i1 & i2) | bad).to(torch.int32)
 
 
+def fold_width(n: int) -> int:
+    """The width of the next fold of n points: 8 while 8 divides n (the
+    `_fold8` levels), then the 2 or 4 left (the remainder's halving)."""
+    return 8 if n % 8 == 0 else n
+
+
 def fb_fold_plain(X, Y, Z, w: int):
-    """Torch-op version of the fb_fold kernel: the halving tree over each
-    group of w consecutive points, as `_fold8` and the remainder lay it out."""
+    """Torch-op version of the fb_fold kernel: each tile of w consecutive
+    points to one, by halving trees over groups of fold_width(n) points, as
+    `_fold8` and the remainder lay them out."""
     P, Kc = X.shape[:2]
-    pts = [lift(t).reshape(8, P, Kc // w, w) for t in (X, Y, Z)]
+    T = Kc // w  # tiles
+    pts = [lift(t).reshape(8, P, T, w) for t in (X, Y, Z)]
     while w > 1:
-        h = w // 2
-        pts = _padd_w(*(t[..., :h] for t in pts), *(t[..., h:] for t in pts))
-        w = h
+        g = fold_width(w)
+        pts = [t.reshape(8, P, T, w // g, g) for t in pts]
+        w //= g
+        while g > 1:
+            h = g // 2
+            pts = _padd_w(*(t[..., :h] for t in pts), *(t[..., h:] for t in pts))
+            g = h
+        pts = [t[..., 0] for t in pts]
     return tuple(lower(t[..., 0]) for t in pts)
+
+
+def fold_tail_plain(X, Y, Z):
+    """Torch-op version of fold_tail: fb_fold_plain over the 8-to-1 folds
+    while 8 divides Kc, then over the remainder, one width at a time."""
+    Kc = X.shape[1]
+    while Kc > 1:
+        w = fold_width(Kc)
+        X, Y, Z = fb_fold_plain(X, Y, Z, w)
+        Kc //= w
+    return X[:, 0], Y[:, 0], Z[:, 0]
 
 
 def chain_rows(digits, n: int):
@@ -257,47 +284,60 @@ def fb_mult_chunk(tx, ty, tz, bx, by, CH: int):
     return out
 
 
-def batch_inv_levels(N: int):
+def batch_inv_levels(N: int, group: int = INV_GROUP, roots: int = INV_ROOTS):
     """The product tree of fq_batch_inv on N elements: a list of (N_l, M_l),
-    level l's N_l elements forming M_l = ceil(N_l / INV_GROUP) strided groups
-    whose products are level l + 1's elements, and the number of roots
-    (<= INV_ROOTS) that are inverted by Fermat."""
-    levels = []
-    while N > INV_ROOTS:
-        M = -(-N // INV_GROUP)
-        levels.append((N, M))
-        N = M
-    return levels, N
+    level l's N_l elements forming M_l = ceil(N_l / group) strided groups
+    whose products are level l + 1's elements, down to a last level of at
+    most `roots` groups, each of which inverts its own product.  Its CUDA
+    launches: 2 * len(levels) - 1."""
+    levels = [(N, -(-N // group))]
+    while levels[-1][1] > roots:
+        N = levels[-1][1]
+        levels.append((N, -(-N // group)))
+    return levels
 
 
 def fq_batch_inv(a):
     """Inverses of N nonzero Fq elements a (N, 8), Montgomery in and out, for
     any N >= 1.  On the card: forward prefix products per strided group down
-    the tree of batch_inv_levels, Fermat at the roots, backward sweeps up;
-    one launch of the kernel, whatever its number of CUDA launches."""
+    the tree of batch_inv_levels(N), then on the last level a forward sweep,
+    a safegcd inversion of each group's product and a backward sweep in one
+    launch, then backward sweeps up; one launch of the kernel, whatever its
+    number of CUDA launches."""
     N, dev = a.shape[0], a.device
     kernels.check(a, "a", (N, 8), dev)
     if N < 1:
-        raise ValueError("fq_batch_inv: no elements")
+        raise ValueError(f"fq_batch_inv: N = {N}, want >= 1")
     if not kernels.use_kernel(dev, "fq_batch_inv"):
         return fq_batch_inv_plain(a)
-    levels, nroots = batch_inv_levels(N)
+    out = _batch_inv_launches(a, batch_inv_levels(N))
+    kernels.LAUNCHES["fq_batch_inv"] += 1
+    return out
+
+
+def _batch_inv_launches(a, levels):
+    """fq_batch_inv's CUDA launches on a (N, 8) on the card, down and up the
+    product tree `levels`: batch_inv_levels(N, group, roots) at any cut (the
+    cut changes the launches, not the result).  fq_batch_inv takes the
+    module's cut; tools/tune_batch_inv.py times others."""
+    dev = a.device
     stream = kernels.stream_of(a)
     cur, down = a, []
-    for n_l, m_l in levels:
+    for n_l, m_l in levels[:-1]:
         pref = torch.empty((n_l, 8), dtype=torch.int32, device=dev)  # prefixes, then inverses
         prod = torch.empty((m_l, 8), dtype=torch.int32, device=dev)
-        kernels.launch("fq_inv_prefix_launch", cur.data_ptr(), pref.data_ptr(), prod.data_ptr(),
+        kernels.launch("fq_inv_down_launch", cur.data_ptr(), pref.data_ptr(), prod.data_ptr(),
                        n_l, m_l, stream)
         down.append((cur, pref))
         cur = prod
-    inv = torch.empty((nroots, 8), dtype=torch.int32, device=dev)
-    kernels.launch("fq_inv_roots_launch", cur.data_ptr(), inv.data_ptr(), nroots, stream)
-    for (src, pref), (n_l, m_l) in zip(reversed(down), reversed(levels)):
-        kernels.launch("fq_inv_back_launch", src.data_ptr(), pref.data_ptr(), inv.data_ptr(),
+    n_l, m_l = levels[-1]
+    inv = torch.empty((n_l, 8), dtype=torch.int32, device=dev)  # prefixes, then inverses
+    kernels.launch("fq_inv_root_launch", cur.data_ptr(), inv.data_ptr(), inv.data_ptr(), n_l, m_l,
+                   stream)
+    for (src, pref), (n_l, m_l) in zip(reversed(down), reversed(levels[:-1])):
+        kernels.launch("fq_inv_up_launch", src.data_ptr(), pref.data_ptr(), inv.data_ptr(),
                        pref.data_ptr(), n_l, m_l, stream)
         inv = pref
-    kernels.LAUNCHES["fq_batch_inv"] += 1
     return inv
 
 
@@ -373,17 +413,17 @@ def fb_pair_combine(x, y, dinv, flags):
 
 
 def fb_fold(X, Y, Z, w: int):
-    """Projective points (P, Kc, 8) each -> (P, Kc / w, 8) each: the halving
-    tree of complete additions over every group of w consecutive points, w in
-    {2, 4, 8}."""
+    """Projective points (P, Kc, 8) each -> (P, Kc / w, 8) each: every tile
+    of w consecutive points folded to one (fb_fold_plain's trees), w a power
+    of two from 2 to FOLD_TILE."""
     if X.dim() != 3:
         raise ValueError(f"fb_fold: X of shape {tuple(X.shape)}, want (P, Kc, 8)")
     P, Kc, dev = X.shape[0], X.shape[1], X.device
     for t, name in ((X, "X"), (Y, "Y"), (Z, "Z")):
         kernels.check(t, name, (P, Kc, 8), dev)
-    if w not in (2, 4, 8) or P < 1 or Kc < w or Kc % w:
-        raise ValueError(f"fb_fold: P = {P}, Kc = {Kc}, w = {w}: want w in (2, 4, 8) "
-                         "dividing Kc >= w")
+    if not 2 <= w <= FOLD_TILE or w & (w - 1) or P < 1 or Kc < w or Kc % w:
+        raise ValueError(f"fb_fold: P = {P}, Kc = {Kc}, w = {w}: want w a power of two in "
+                         f"[2, {FOLD_TILE}] dividing Kc >= w")
     if not kernels.use_kernel(dev, "fb_fold"):
         return fb_fold_plain(X, Y, Z, w)
     out = tuple(torch.empty((P, Kc // w, 8), dtype=torch.int32, device=dev) for _ in range(3))
@@ -391,6 +431,27 @@ def fb_fold(X, Y, Z, w: int):
                    *(o.data_ptr() for o in out), P * (Kc // w), w, kernels.stream_of(X))
     kernels.LAUNCHES["fb_fold"] += 1
     return out
+
+
+def fold_tiles(Kc: int):
+    """The tile of each fb_fold launch that folds Kc points per MSM to one:
+    FOLD_TILE while more remain, then all that are left."""
+    if Kc < 1 or Kc & (Kc - 1):
+        raise ValueError(f"fold_tiles: Kc = {Kc}, want a power of two")
+    tiles = []
+    while Kc > FOLD_TILE:
+        tiles.append(FOLD_TILE)
+        Kc //= FOLD_TILE
+    return tiles + ([Kc] if Kc > 1 else [])
+
+
+def fold_tail(X, Y, Z):
+    """The projective tail of a query (`_fold8` levels and the remainder):
+    (P, Kc, 8) each -> the sums (P, 8) each, through fb_fold over
+    fold_tiles(Kc): two launches up to Kc = FOLD_TILE^2."""
+    for w in fold_tiles(X.shape[1]):
+        X, Y, Z = fb_fold(X, Y, Z, w)
+    return X[:, 0], Y[:, 0], Z[:, 0]
 
 
 def _scan_width(S: int, total: int, name: str):
@@ -630,13 +691,7 @@ class FixedBaseTable:
                 break
             x, y, inf = affine_level(x, y, inf)
             Kc //= 2
-        X, Y, Z = to_projective(x, y, inf)
-        while Kc % 8 == 0:
-            X, Y, Z = fb_fold(X, Y, Z, 8)
-            Kc //= 8
-        if Kc > 1:  # the remainder, 2 or 4 points per MSM
-            X, Y, Z = fb_fold(X, Y, Z, Kc)
-        return X[:, 0], Y[:, 0], Z[:, 0]
+        return fold_tail(*to_projective(x, y, inf))
 
     def msm_mont(self, scalars):
         """scalars (P, n, 8) Fr Montgomery -> a list of P host affine points
