@@ -9,6 +9,9 @@ Phases, any failure exits nonzero:
   1. device check: a CUDA card is required (never falls back to the CPU);
      prints `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
   2. build of the kernels in uzkge_tpu_torch/csrc/ with nvcc for sm_90a, timed;
+     the product rate of field.cuh's fp_mul (fp_mul_chain: 4 independent
+     chains a thread, 2048 threads per SM, Fr and Fq), checked against its
+     plain version on a small input, beside the bounds' assumed rate;
   3. each kernel against its plain torch version on the same inputs, exactly
      (field arithmetic has no rounding: tolerance 0):
        ntt_pass through NTTDomain: fft / ifft at n = 16384 (batch 8) and
@@ -38,7 +41,8 @@ Phases, any failure exits nonzero:
      random.Random(seed) on a seeded 52-card deck, every Lagrange commit
      through the table; the proof must verify, a tampered deck must not, its
      sha256 must equal the JAX package's (tests/data/torch_golden.json), and
-     every kernel of the proof must have been launched by that run; one more
+     every kernel of the proof must have been launched by that run, and the
+     shape of each of its ntt_pass calls is recorded; one more
      proof under torch.profiler gives the device's busy time (device events
      only), its idle share of the profiled proof, and the summed device time
      and count of every kernel of csrc/ by name; then the same proof on
@@ -55,9 +59,10 @@ Phases, any failure exits nonzero:
      against its plain version, timed beside it (fb_select also beside
      PyTorch's own gather of the same rows; fb_fold launch by launch and
      over the whole tail), and the whole query's points against the
-     variable-base Pippenger's on the same scalars; fb_fold and fq_batch_inv
-     at the proof's other batches (P = 1, 5, 2), against their plain
-     versions, timed; then
+     variable-base Pippenger's on the same scalars; fq_batch_inv,
+     fb_pair_combine (level by level) and fb_fold at the proof's other
+     batches (P = 1, 5, 2), against their plain versions, timed; ntt_pass at
+     every shape the proof launched, against its plain version, timed; then
      msm_chain at the same shape (P = 8 dense rows, n = 16384: 2^21 leaves
      per MSM; one leaf round with S = 32, projective rounds with S = 32,
      32, 32, 2), the chain build and every round against its plain version,
@@ -79,7 +84,11 @@ Phases, any failure exits nonzero:
      bound worked out from this run's shapes and what bounds it, and the time
      of one PyTorch call computing the same function where there is one:
      only fb_select's gather; no PyTorch call computes a BN254 NTT, MSM,
-     table or group addition), the card line, and last the contract line
+     table or group addition); ntt_pass and fb_pair_combine also give their
+     per-proof device time in the profiled proof (proof_ms), the sum over
+     the proof's launches of their timed shapes (proof_events_ms) and the
+     per-proof bound summed likewise (proof_bound_ms); the card line, and
+     last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The scan kernels' times are per msm_chain call of P = 8 MSMs, scan_proj_reduce
@@ -224,20 +233,107 @@ def check_ntt(dev, rng, rate):
     # timing at the main path's largest pass: the right branch of the
     # 5-row coset fft at m = 131072 (S = 1024, IN = 128)
     OUT, S, IN = 5, 1024, 128
-    xs = torch.randint(0, 1 << 30, (OUT, S, IN, 8), dtype=torch.int32, device=dev)
-    xs = fr.mul(xs, fr.const(1, dev))  # canonical values
+    xs = random_fr(OUT * S * IN, dev).view(OUT, S, IN, 8)
     tw = NTTDomain(131072, dev)._plan_fwd["plan1"]["tws"][0]
-    ms, got = cuda_ms(lambda: cuda_ntt.ntt_pass(xs, tw))
+    ms, got = cuda_ms(lambda: cuda_ntt.ntt_pass(xs, tw), reps=50)  # enough to lift the clocks
     plain_ms, want = cuda_ms(lambda: cuda_ntt.ntt_pass_plain(xs, tw), reps=0)
     e = max_abs_err(got, want)
     if e != 0:
         raise AssertionError("ntt_pass disagrees with ntt_pass_plain on the card")
     log(f"ntt_pass (OUT={OUT}, S={S}, IN={IN}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    # every stage but the last multiplies each butterfly by its twiddle
-    products = OUT * IN * (S // 2) * (S.bit_length() - 2)
-    nbytes = 2 * OUT * S * IN * 32 + (S // 2) * 32
     return {"max_abs_err": max(err, e), "ms": ms, "plain_ms": plain_ms,
-            "shape": f"OUT={OUT} S={S} IN={IN}", **bound(nbytes, products, rate)}
+            "shape": f"OUT={OUT} S={S} IN={IN}", **ntt_bound(OUT, S, IN, False, False, False, rate)}
+
+
+def ntt_bound(OUT, S, IN, pre, post, const, rate) -> dict:
+    """ntt_pass's bound at one shape: every radix-2 stage but the last
+    multiplies each butterfly by its twiddle, each ladder or constant one
+    product per element; x and the ladders read once, y written once."""
+    elems = OUT * S * IN
+    products = OUT * IN * (S // 2) * (S.bit_length() - 2) + elems * (pre + post + const)
+    nbytes = 2 * elems * 32 + (S // 2) * 32 + (pre + post) * S * IN * 32 + const * 32
+    return bound(nbytes, products, rate)
+
+
+class NttShapes:
+    """Counts the (OUT, S, IN, pre, post, const) shape of every ntt_pass call
+    while active (a wrapper around cuda_ntt.ntt_pass; it launches nothing)."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def __enter__(self):
+        from uzkge_tpu_torch.ntt import cuda_ntt
+
+        self._orig = cuda_ntt.ntt_pass
+
+        def record(x, tw, pre=None, post=None, const=None):
+            key = (*x.shape[:3], pre is not None, post is not None, const is not None)
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self._orig(x, tw, pre, post, const)
+
+        cuda_ntt.ntt_pass = record
+        return self
+
+    def __exit__(self, *exc):
+        from uzkge_tpu_torch.ntt import cuda_ntt
+
+        cuda_ntt.ntt_pass = self._orig
+
+
+def time_ntt_shapes(dev, counts, rate, errs):
+    """ntt_pass at every shape the proof launched (`counts`: NttShapes.counts)
+    against its plain version on the same inputs, timed beside it (mean of 5,
+    CUDA events); returns the per-proof sums over the launches: kernel ms,
+    plain ms and bound ms."""
+    from uzkge_tpu_torch.ntt import cuda_ntt
+    from uzkge_tpu_torch.ntt.ntt import NTTDomain
+    from uzkge_tpu_torch.ntt.stockham import stage_twiddles_strided
+
+    master = NTTDomain(2048, dev).master
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    for (OUT, S, IN, pre, post, const), count in sorted(counts.items()):
+        x = random_fr(OUT * S * IN, dev).view(OUT, S, IN, 8)
+        tw = stage_twiddles_strided(master, 2048, S, 2048 // S, False)[0]
+        lads = [random_fr(S * IN, dev).view(S, IN, 8) if pre else None,
+                random_fr(S * IN, dev).view(S, IN, 8) if post else None,
+                random_fr(1, dev).view(8) if const else None]
+        shape = (f"OUT={OUT} S={S} IN={IN} pre={int(pre)} post={int(post)} "
+                 f"const={int(const)} x{count}")
+        _, ms, pms = compare(errs, "ntt_pass", shape, lambda: cuda_ntt.ntt_pass(x, tw, *lads),
+                             lambda: cuda_ntt.ntt_pass_plain(x, tw, *lads), reps=5)
+        b = ntt_bound(OUT, S, IN, pre, post, const, rate)
+        log(f"  ntt_pass {shape}: bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        tot["ms"] += count * ms
+        tot["plain_ms"] += count * pms
+        tot["bound_ms"] += count * b["bound_ms"]
+        tot["launches"] += count
+    log(f"ntt_pass per proof ({tot['launches']} launches, CUDA events): kernel {tot['ms']:.4f} ms, "
+        f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    return tot
+
+
+def check_product_rate(dev):
+    """The product rate of field.cuh's fp_mul on the card: fp_mul_chain with
+    4 independent chains per thread, 2048 threads per SM, 512 products per
+    chain, Fr and Fq (mean of 3 after a warm-up), beside the bounds' assumed
+    rate (the multiply rate over MULS_PER_PRODUCT); the kernel's output on a
+    small input against its plain version first."""
+    from uzkge_tpu_torch.ff.cuda_field import CHAINS, fp_mul_chain, fp_mul_chain_plain
+    from uzkge_tpu_torch.ff.field import fq, fr
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    N, iters = 2048 * sms, 512
+    assumed = imul_rate() / MULS_PER_PRODUCT
+    for name, ctx in (("Fr", fr), ("Fq", fq)):
+        a, b = random_fr(CHAINS * 512, dev).view(CHAINS, 512, 8), random_fr(512, dev)
+        if not torch.equal(fp_mul_chain(ctx, a, b, 8), fp_mul_chain_plain(ctx, a, b, 8)):
+            raise AssertionError(f"fp_mul_chain ({name}) disagrees with its plain version")
+        a, b = random_fr(CHAINS * N, dev).view(CHAINS, N, 8), random_fr(N, dev)
+        ms, _ = cuda_ms(lambda: fp_mul_chain(ctx, a, b, iters), reps=3)
+        rate = CHAINS * N * iters / (ms * 1e-3)
+        log(f"product rate {name}: {rate:.4e} products/s ({CHAINS} chains x {N} threads x "
+            f"{iters}, {ms:.4f} ms), {rate / assumed:.4f} of the bounds' assumed {assumed:.4e}/s")
 
 
 def check_msm(dev, rng, rate):
@@ -681,7 +777,8 @@ def port_kernel_names():
 
 def log_port_kernels(events):
     """Summed device time and count of every kernel of csrc/ among the
-    events, by name, those that never ran included."""
+    events, by name, those that never ran included; returns {name: (ms,
+    count)}."""
     import re
 
     names = port_kernel_names()
@@ -693,6 +790,7 @@ def log_port_kernels(events):
                 sums[k][1] += 1
     for k in names:
         log(f"  port kernel {k:30s} device {sums[k][0] / 1e3:10.4f} ms  x{sums[k][1]}")
+    return {k: (us / 1e3, count) for k, (us, count) in sums.items()}
 
 
 def log_device_time(events, top: int):
@@ -709,19 +807,20 @@ def log_device_time(events, top: int):
 def profile_prove(seed, pp, kzg, joint, deck, latency):
     """One more proof under torch.profiler.  The idle share is taken against
     the profiled proof's wall time (profiler on); busy time over the
-    unprofiled latency is printed beside it."""
+    unprofiled latency is printed beside it.  Returns log_port_kernels'
+    sums, or {} when the profiler recorded no device event."""
     from uzkge_tpu_torch.shuffle import app
 
     rng = random.Random(seed + 1)
     wall, events, busy_s = device_profile(lambda: app.prove_shuffle(rng, joint, deck, pp, kzg))
     if events is None:
         log("profiled prove52: the profiler recorded no device events (busy time not measured)")
-        return
+        return {}
     log(f"profiled prove52: wall {wall:.3f} s (profiler on), {len(events)} device events, "
         f"device busy {busy_s:.4f} s, idle share of the profiled wall {1 - busy_s / wall:.4f}; "
         f"busy / unprofiled latency {busy_s / latency:.4f}")
     log_device_time(events, 15)
-    log_port_kernels(events)
+    return log_port_kernels(events)
 
 
 def profile_table_build(tbl, dev):
@@ -800,8 +899,11 @@ def main_path(dev, golden):
         raise AssertionError("the set-up did not build the fixed-base table and commit through it")
     state = rng.getstate()
 
-    proof, outputs, latency, launches, stages = prove_timed(app, rng, joint, deck, pp, kzg,
-                                                            "fixed-base")
+    with NttShapes() as shapes:
+        proof, outputs, latency, launches, stages = prove_timed(app, rng, joint, deck, pp, kzg,
+                                                                "fixed-base")
+    log("ntt_pass shapes of the proof (OUT, S, IN, pre, post, const): launches " +
+        json.dumps({str(k): v for k, v in sorted(shapes.counts.items())}))
     missing = [k for k in PROOF_KERNELS if launches[k] <= 0]
     if missing or kzg._lagrange_vb is not None:
         raise AssertionError(f"the fixed-base proof launched no {missing} or used the Pippenger")
@@ -815,7 +917,7 @@ def main_path(dev, golden):
     if app.verify_shuffle(pp.verifier_params, kzg, deck, bad, proof2):
         raise AssertionError("the verifier accepts a tampered public input")
     log("verifier: proof accepted, tampered deck rejected")
-    profile_prove(seed, pp, kzg, joint, deck, latency)
+    profile = profile_prove(seed, pp, kzg, joint, deck, latency)
 
     kzg_vb = load_srs(pp.n, dev, fixed_base=False)
     kzg_vb.commit_evals(torch.zeros((pp.n, 8), dtype=torch.int32, device=dev))  # its bases
@@ -832,7 +934,7 @@ def main_path(dev, golden):
         a, b = (latency, latency_vb) if name == "latency" else (stages[name], stages_vb[name])
         log(f"{name:24s} {a:12.4f} {b:14.4f}")
     ctx = {"pp": pp, "joint": joint, "deck": deck, "state": state, "latency": latency,
-           "stages": stages}
+           "stages": stages, "ntt_shapes": shapes.counts, "profile": profile}
     return launches, launches_vb, ctx
 
 
@@ -898,7 +1000,10 @@ def check_query_full(dev, tbl, rate, errs, rng):
         (x, y, inf), ms, pms = compare(errs, "fb_pair_combine", shape,
                                        lambda: fb.fb_pair_combine(x, y, dinv, flags),
                                        lambda: fb.fb_pair_combine_plain(x, y, dinv, flags))
-        add("fb_pair_combine", ms, pms, P * Kc * 64 + P * H * (32 + 4 + 64 + 4), 3 * P * H, shape)
+        add("fb_pair_combine", ms, pms, combine_bytes(P, H), 3 * P * H, shape)
+        b = bound(combine_bytes(P, H), 3 * P * H, rate)
+        log(f"  fb_pair_combine level P={P} H={H}: {ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}), {b['bound_ms'] / ms:.4f} of it")
         Kc = H
     proj = pts = fb.to_projective(x, y, inf)
     tiles = fb.fold_tiles(Kc)
@@ -940,11 +1045,18 @@ def check_query_full(dev, tbl, rate, errs, rng):
     return res, query_ms
 
 
-def check_query_batches(dev, tbl, errs):
-    """fq_batch_inv and fb_fold at the proof's other batches (P = 1, 5, 2:
-    r2_commit, r3_t_split_commit, r5_openings) on the levels of a query of
-    random scalars, each against its plain version, timed (mean of 3); the
-    points against msm_mont's.  Returns {P: {kernel: ms per query}}."""
+def combine_bytes(P: int, H: int) -> int:
+    """fb_pair_combine's bytes at a level: x and y of 2H points per MSM read,
+    dinv and the flags read, xo, yo and the identity flags written."""
+    return P * 2 * H * 64 + P * H * (32 + 4 + 64 + 4)
+
+
+def check_query_batches(dev, tbl, errs, rate):
+    """fq_batch_inv, fb_pair_combine and fb_fold at the proof's other batches
+    (P = 1, 5, 2: r2_commit, r3_t_split_commit, r5_openings) on the levels of
+    a query of random scalars, each against its plain version, timed (mean
+    of 3); the points against msm_mont's.  Returns {P: {kernel: ms per
+    query}}, fb_pair_combine's bound per query beside it."""
     from uzkge_tpu_torch.msm import fixed_base as fb
 
     out = {}
@@ -952,7 +1064,7 @@ def check_query_batches(dev, tbl, errs):
         sc = random_fr(P * tbl.n, dev).view(P, tbl.n, 8)
         d = fb.scalars_to_digits(sc, tbl.c, tbl.bits).transpose(1, 2).reshape(P, -1).contiguous()
         x, y, inf = fb.fb_select(d, tbl.table)
-        inv_ms = 0.0
+        inv_ms = comb_ms = comb_bound = 0.0
         for _ in range(fb.AFFINE_LEVELS):
             den, flags = fb.fb_pair_den(x, inf)
             flat = den.view(-1, 8)
@@ -960,15 +1072,25 @@ def check_query_batches(dev, tbl, errs):
                                      lambda: fb.fq_batch_inv(flat),
                                      lambda: fb.fq_batch_inv_plain(flat))
             inv_ms += ms
-            x, y, inf = fb.fb_pair_combine(x, y, dinv.view(den.shape), flags)
+            dinv, H = dinv.view(den.shape), den.shape[1]
+            (x, y, inf), ms, _ = compare(errs, "fb_pair_combine", f"P={P} H={H}",
+                                         lambda: fb.fb_pair_combine(x, y, dinv, flags),
+                                         lambda: fb.fb_pair_combine_plain(x, y, dinv, flags))
+            b = bound(combine_bytes(P, H), 3 * P * H, rate)["bound_ms"]
+            log(f"  fb_pair_combine level P={P} H={H}: {ms:.4f} ms, bound {b:.4f} ms, "
+                f"{b / ms:.4f} of it")
+            comb_ms += ms
+            comb_bound += b
         pts = fb.to_projective(x, y, inf)
         tail, fold_ms, _ = compare(errs, "fb_fold", f"P={P} Kc={x.shape[1]} tail",
                                    lambda: fb.fold_tail(*pts), lambda: fb.fold_tail_plain(*pts))
         if fb._extract_host(*tail) != tbl.msm_mont(sc):
             raise AssertionError(f"the query's levels at P = {P} disagree with msm_mont")
-        out[P] = {"fq_batch_inv": inv_ms, "fb_fold": fold_ms}
+        out[P] = {"fq_batch_inv": inv_ms, "fb_fold": fold_ms, "fb_pair_combine": comb_ms,
+                  "fb_pair_combine_bound": comb_bound}
         log(f"query P={P}: fq_batch_inv {inv_ms:.4f} ms over its {fb.AFFINE_LEVELS} levels, "
-            f"fb_fold {fold_ms:.4f} ms over the tail")
+            f"fb_pair_combine {comb_ms:.4f} ms (bound {comb_bound:.4f}), fb_fold {fold_ms:.4f} ms "
+            f"over the tail")
     return out
 
 
@@ -1199,6 +1321,7 @@ def main():
     rng = random.Random(golden["seed"])
     rate = imul_rate()
     log(f"bounds: {HBM_BYTES_PER_S:.4g} B/s, {rate:.4g} 32-bit multiplies/s")
+    check_product_rate(dev)
     ntt = check_ntt(dev, rng, rate)
     acc, red = check_msm(dev, rng, rate)
     from uzkge_tpu_torch.gen_params import load_srs
@@ -1213,10 +1336,20 @@ def main():
     tbl, fb_launches = fixed_base_path(dev, rng)
     fbres = check_fixed_base_full(dev, tbl, rate, errs)
     qres, query_ms = check_query_full(dev, tbl, rate, errs, rng)
-    batches = check_query_batches(dev, tbl, errs)
+    batches = check_query_batches(dev, tbl, errs, rate)
     per_proof = {k: qres[k]["ms"] + sum(b[k] for b in batches.values())
-                 for k in ("fq_batch_inv", "fb_fold")}
+                 for k in ("fq_batch_inv", "fb_fold", "fb_pair_combine")}
     log("per proof (queries at P = 8, 1, 5, 2), ms: " + json.dumps(per_proof))
+    ntt_proof = time_ntt_shapes(dev, ctx["ntt_shapes"], rate, errs)
+    ntt["max_abs_err"] = max(ntt["max_abs_err"], errs.get("ntt_pass", 0))
+    prof = ctx["profile"]
+    ntt.update(proof_ms=prof.get("ntt_pass_kernel", (None,))[0], proof_events_ms=ntt_proof["ms"],
+               proof_bound_ms=ntt_proof["bound_ms"])
+    qres["fb_pair_combine"].update(
+        proof_ms=prof.get("fb_pair_combine_kernel", (None,))[0],
+        proof_events_ms=per_proof["fb_pair_combine"],
+        proof_bound_ms=qres["fb_pair_combine"]["bound_ms"]
+        + sum(b["fb_pair_combine_bound"] for b in batches.values()))
     chain, sc, want = check_chain_full(dev, tbl, rate, errs, query_ms)
     group_launches = sharded_path(dev, golden, ctx, tbl, sc, want)
     launches.update({k: launches_vb[k] for k in VB_KERNELS})

@@ -10,7 +10,9 @@ Field arithmetic has no rounding, so every comparison is exact:
   * the two build stages, _build_bases and one _build_chunk;
   * fq_batch_inv against pbatch_inv_fq, and fp_mont_mul against the Pallas
     _mul_kernel body run by the Pallas interpreter;
-  * on a card (marker on_cuda), the four kernels against their plain versions.
+  * on a card (marker on_cuda), the four kernels against their plain versions,
+    and the device Montgomery product (fp_mont_mul, fp_mul_chain) against
+    the host's integers.
 The JAX tables, whose first build is mostly XLA compile time, are built once
 for the module, in threads.  JAX is imported inside the fixtures and tests
 that use it, so that the on_cuda tests also run where JAX is absent
@@ -29,7 +31,8 @@ from uzkge_tpu_torch.constants.bn254 import Q_MOD, R_MOD
 from uzkge_tpu_torch.curve.bn254 import G1_GEN, g1_mul
 from uzkge_tpu_torch.errors import ParameterError
 from uzkge_tpu_torch.ff import field as tf
-from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul, fp_mont_mul_plain
+from uzkge_tpu_torch.ff.cuda_field import (CHAINS, fp_mont_mul, fp_mont_mul_plain, fp_mul_chain,
+                                          fp_mul_chain_plain)
 from uzkge_tpu_torch.msm import fixed_base as fb
 from uzkge_tpu_torch.pcs.kzg import KZG, _fb_window
 
@@ -292,3 +295,32 @@ def test_fq_batch_inv_matches_plain(cuda_device, N):
     a[:, 7] &= 0x0FFFFFFF  # below 2^252 < q, and nonzero with overwhelming probability
     a[: min(N, 2)] = tf.fq.to_mont_limbs([Q_MOD - 1, 1][: min(N, 2)], cuda_device)
     assert torch.equal(fb.fq_batch_inv(a), fb.fq_batch_inv_plain(a))
+
+
+@pytest.mark.on_cuda
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_device_product_matches_host(cuda_device, name):
+    """field.cuh's device product, through fp_mont_mul, against Python's
+    integers: a * b mod p at 0, 1, p - 1, R mod p, 2^254 mod p and seeded
+    values, every pair of them; fp_mul_chain (the rate kernel) against its
+    plain version, and against a * b^iters mod p."""
+    ctx, p = (tf.fr, R_MOD) if name == "fr" else (tf.fq, Q_MOD)
+    rs = np.random.default_rng(17)
+    vals = [0, 1, p - 1, (1 << 256) % p, (1 << 254) % p, p - 2]
+    vals += [int.from_bytes(rs.bytes(32), "little") % p for _ in range(58)]
+    a = [u for u in vals for _ in vals]
+    b = [v for _ in vals for v in vals]
+    got = fp_mont_mul(ctx, ctx.to_mont_limbs(a, cuda_device), ctx.to_mont_limbs(b, cuda_device))
+    assert ctx.from_mont_limbs(got.cpu()) == [u * v % p for u, v in zip(a, b)]
+    n, iters = 256, 5
+    starts = [int.from_bytes(rs.bytes(32), "little") % p for _ in range(CHAINS * n)]
+    ca = ctx.to_mont_limbs(starts, cuda_device).reshape(CHAINS, n, 8)
+    cb = ctx.to_mont_limbs(vals[:4] * (n // 4), cuda_device).reshape(n, 8)
+    before = kernels.LAUNCHES["fp_mul_chain"]
+    out = fp_mul_chain(ctx, ca, cb, iters)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fp_mul_chain"] == before + 1
+    assert torch.equal(out, fp_mul_chain_plain(ctx, ca, cb, iters))
+    bs = vals[:4] * (n // 4)
+    want = [s * pow(bs[i % n], iters, p) % p for i, s in enumerate(starts)]
+    assert ctx.from_mont_limbs(out.cpu().reshape(-1, 8)) == want

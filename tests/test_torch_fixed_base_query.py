@@ -449,7 +449,9 @@ def cuda_device():
 def test_query_kernels_match_plain(cuda_device):
     """fb_select, fb_pair_den, fb_pair_combine and fb_fold (w = 8, 4, 2) on
     the card against their plain versions on the same inputs, then a whole
-    query at n = 32, c = 4 against the CPU's."""
+    query at n = 32, c = 4 against the CPU's.  The level runs at P = 3, H =
+    128 (one combine tile), P = 2, H = 512 (four tiles), and at P = 1 with
+    H = 8 and H = 1, below one tile."""
     P, K, D = 3, 512, 8
     rs = np.random.default_rng(9)
     table = _rows(_fq_vals(rs, K * D * 2), (K, D, 2)).reshape(K, D, 16).to(cuda_device)
@@ -457,14 +459,20 @@ def test_query_kernels_match_plain(cuda_device):
     before = dict(kernels.LAUNCHES)
     for g, w in zip(fb.fb_select(digits, table), fb.fb_select_plain(digits, table)):
         assert torch.equal(g, w)
-    x, y, inf = (t.to(cuda_device) for t in _level_inputs(P, 256, 7))
-    den, flags = fb.fb_pair_den(x, inf)
-    pden, pflags = fb.fb_pair_den_plain(x, inf)
-    assert torch.equal(den, pden) and torch.equal(flags, pflags)
-    dinv = fb.fq_batch_inv(den.view(-1, 8)).view(den.shape)
-    for g, w in zip(fb.fb_pair_combine(x, y, dinv, flags),
-                    fb.fb_pair_combine_plain(x, y, dinv, flags)):
-        assert torch.equal(g, w)
+    for Pl, Kc in ((P, 256), (2, 1024), (1, 16), (1, 2)):
+        if Kc >= 12:
+            level = _level_inputs(Pl, Kc, 7)
+        else:  # too narrow to plant the pairs: random identities
+            level = (_rows(_fq_vals(rs, Pl * Kc), (Pl, Kc)), _rows(_fq_vals(rs, Pl * Kc), (Pl, Kc)),
+                     torch.from_numpy((rs.random((Pl, Kc)) < 0.3).astype(np.int32)))
+        x, y, inf = (t.to(cuda_device) for t in level)
+        den, flags = fb.fb_pair_den(x, inf)
+        pden, pflags = fb.fb_pair_den_plain(x, inf)
+        assert torch.equal(den, pden) and torch.equal(flags, pflags)
+        dinv = fb.fq_batch_inv(den.view(-1, 8)).view(den.shape)
+        for g, w in zip(fb.fb_pair_combine(x, y, dinv, flags),
+                        fb.fb_pair_combine_plain(x, y, dinv, flags)):
+            assert torch.equal(g, w), (Pl, Kc)
     for Kc, w in ((64, 8), (4, 4), (2, 2), (512, 512), (256, 128)):
         pts = tuple(t.to(cuda_device) for t in _proj_inputs(P, Kc, Kc))
         for g, p in zip(fb.fb_fold(*pts, w), fb.fb_fold_plain(*pts, w)):

@@ -10,7 +10,6 @@ JAX is imported inside the tests that use it, so that the on_cuda tests also
 run where JAX is absent (`pytest --noconftest -m on_cuda`).
 """
 
-import random
 
 import numpy as np
 import pytest
@@ -158,23 +157,39 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (OUT, S, IN): the tests' small passes, then the passes of the proof: the
+# m = 131072 four-step (S2 = 128 over IN = 1024 with the inter-factor T as
+# post ladder, then S1 = 1024 over IN = 128) and the n = 16384 one (16 over
+# 1024, 1024 over 16), at the 5-row batch of the quotient's coset ffts
+PASS_SHAPES = [(3, 2, 1), (3, 128, 16), (3, 1024, 1), (3, 1024, 8), (1, 1024, 2),
+               (5, 128, 1024), (5, 1024, 128), (5, 16, 1024), (5, 1024, 16)]
+
+
 @pytest.mark.on_cuda
-@pytest.mark.parametrize("S,IN", [(2, 1), (128, 16), (1024, 1), (1024, 8)])
-def test_ntt_pass_kernel_matches_plain(cuda_device, S, IN):
-    rng = random.Random(S + IN)
-    OUT = 3
+@pytest.mark.parametrize("OUT,S,IN", PASS_SHAPES)
+def test_ntt_pass_kernel_matches_plain(cuda_device, OUT, S, IN):
+    """The kernel against ntt_pass_plain on the card, on the same canonical
+    inputs, with a genuine twiddle table (the schedules differ, so they agree
+    only where tw holds the powers of one root of order S), forward and
+    inverse, each ladder present and absent."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S * 4096 + IN + OUT)
 
-    def rand(shape):
-        vals = [rng.randrange(R_MOD) for _ in range(int(np.prod(shape)))]
-        return tf.fr.to_mont_limbs(vals, "cpu").reshape(*shape, 8)
+    def rand(shape):  # canonical: values below 2^252 < r
+        t = torch.randint(-(1 << 31), 1 << 31, (*shape, 8), dtype=torch.int32,
+                          device=cuda_device, generator=gen)
+        t[..., 7] &= 0x0FFFFFFF
+        return t
 
-    x, tw = rand((OUT, S, IN)), rand((S // 2,))
+    dom = NTTDomain(2048, cuda_device)
+    x = rand((OUT, S, IN))
     pre, post, const = rand((S, IN)), rand((S, IN)), rand(())
-    for args in ((None, None, None), (pre, None, None), (None, post, const), (pre, post, const)):
-        want = cuda_ntt.ntt_pass_plain(x, tw, *args)
-        dev = [None if a is None else a.to(cuda_device) for a in args]
-        before = kernels.LAUNCHES["ntt_pass"]
-        got = cuda_ntt.ntt_pass(x.to(cuda_device), tw.to(cuda_device), *dev)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["ntt_pass"] == before + 1
-        assert torch.equal(got.cpu(), want)
+    for inverse in (False, True):
+        tw = stage_twiddles_strided(dom.master, 2048, S, 2048 // S, inverse)[0]
+        for args in ((None, None, None), (pre, None, None), (None, post, const),
+                     (pre, post, const)):
+            want = cuda_ntt.ntt_pass_plain(x, tw, *args)
+            before = kernels.LAUNCHES["ntt_pass"]
+            got = cuda_ntt.ntt_pass(x, tw, *args)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["ntt_pass"] == before + 1
+            assert torch.equal(got, want)

@@ -4,9 +4,9 @@
 // Replaces ff/pallas_rows.py::RowCtx (mul / add / sub / neg): the in-kernel
 // field library of every TPU kernel.  There it is a delayed-carry CIOS over
 // 16 x 16-bit limbs, because the TPU's vector unit has no 32x32->64-bit
-// product; here it is the textbook CIOS over 32-bit limbs with 64-bit
-// products.  Both compute a*b*R^-1 mod p with R = 2^256 and return canonical
-// values (< p), so results agree bit for bit with the JAX package.
+// product; here it is a CIOS over 32-bit limbs with 64-bit products.  Both
+// compute a*b*R^-1 mod p with R = 2^256 and return canonical values (< p),
+// so results agree bit for bit with the JAX package.
 //
 // The header has no CUDA dependency: g++ compiles it too, so the CPU test
 // suite runs the kernels' own arithmetic (tests/test_torch_field.py).
@@ -98,10 +98,25 @@ ZK_HD void fp_neg(uint32_t r[8], const uint32_t a[8]) {
   fp_sub<F>(r, z, a);
 }
 
-// CIOS Montgomery multiplication: r = a * b * 2^-256 mod p.  r may alias a/b.
+// CIOS Montgomery multiplication: r = a * b * 2^-256 mod p for a, b < p
+// (canonical inputs, as every kernel keeps them).  r may alias a/b.
+//
+// Word i of b at a time: T += a * b[i]; m = T[0] * (-p^-1); T = (T + m p) /
+// 2^32, with 32 x 32 -> 64-bit products (one IMAD.WIDE each on the card).
+// T is nine words, never ten: both BN254 moduli have a top limb below 2^30,
+// so p < 2^254.  By induction T < 2p < 2^255 at the start of each round
+// (T = 0 first; then (T + a * b[i] + m * p) / 2^32 < (2p + (2^32 - 1) p +
+// (2^32 - 1) p) / 2^32 < 2p, using a < p).  Inside a round T + a * b[i] +
+// m * p < 2p + 2^33 p < 2^288: nine words hold it, so the carry out of the
+// ninth word is always 0 and the textbook CIOS's tenth word drops out; and
+// T < 2^255 leaves the ninth word 0 at the end of a round.  The result
+// T < 2p takes one conditional subtraction.  This form is the card's one
+// Montgomery product: a PTX form with mad.lo.cc / madc.hi.cc carry chains
+// was measured beside it on the H100 (uzkge_tpu_torch/product_forms.py) and
+// ran slower inside the kernels.
 template <class F>
 ZK_HD void fp_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-  uint32_t t[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  uint32_t t[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
   for (int i = 0; i < 8; i++) {
     uint64_t c = 0;
@@ -111,9 +126,7 @@ ZK_HD void fp_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
       t[j] = (uint32_t)c;
       c >>= 32;
     }
-    c += t[8];
-    t[8] = (uint32_t)c;
-    t[9] = (uint32_t)(c >> 32);
+    t[8] = (uint32_t)c;  // T < 2^255 before the round: t[8] was 0
     uint32_t m = t[0] * F::inv();
     c = ((uint64_t)m * F::p(0) + t[0]) >> 32;
 #pragma unroll
@@ -122,11 +135,9 @@ ZK_HD void fp_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
       t[j - 1] = (uint32_t)c;
       c >>= 32;
     }
-    c += t[8];
-    t[7] = (uint32_t)c;
-    t[8] = t[9] + (uint32_t)(c >> 32);
+    t[7] = (uint32_t)(c + t[8]);  // < 2^32: T < 2^255 after the round
   }
-  fp_reduce_once<F>(r, t, t[8]);
+  fp_reduce_once<F>(r, t, 0);
 }
 
 ZK_HD void fp_copy(uint32_t r[8], const uint32_t a[8]) {

@@ -62,35 +62,49 @@ ZK_HD void fb_pair_den_lane(const uint32_t *x, const int32_t *inf, uint32_t *den
   flags[t] = (i1 ? FB_INF1 : 0) | (i2 ? FB_INF2 : 0) | (bad ? FB_BAD : 0);
 }
 
-// fb_pair_combine, pair t: the affine sum with lambda = (y2 - y1) * dinv,
+// fb_pair_combine, one pair: the affine sum with lambda = (y2 - y1) * dinv,
 // x3 = lambda^2 - x1 - x2, y3 = lambda * (x1 - x3) - y1.  The flags pass an
 // identity side through (P1 + O = P1, O + P2 = P2), and a degenerate pair
 // (x1 == x2) becomes the identity, keeping x3, y3 as computed: a doubling or
 // cancellation between SRS multiples needs a discrete-log relation and comes
-// by chance with probability ~2^-254.
-ZK_HD void fb_pair_combine_lane(const uint32_t *x, const uint32_t *y, const uint32_t *dinv,
-                                const int32_t *flags, uint32_t *xo, uint32_t *yo, int32_t *info,
-                                long long t, long long H) {
-  const long long i = fb_pair_first(t, H);
-  uint32_t x1[8], x2[8], y1[8], y2[8], lam[8], u[8], x3[8], y3[8];
-  ld_fp(x1, x + i * 8);
-  ld_fp(x2, x + (i + H) * 8);
-  ld_fp(y1, y + i * 8);
-  ld_fp(y2, y + (i + H) * 8);
-  ld_fp(u, dinv + t * 8);
+// by chance with probability ~2^-254.  Returns the pair's identity flag.
+ZK_HD int32_t fb_pair_combine_pair(const uint32_t x1[8], const uint32_t x2[8],
+                                   const uint32_t y1[8], const uint32_t y2[8],
+                                   const uint32_t dinv[8], int32_t f, uint32_t xo[8],
+                                   uint32_t yo[8]) {
+  uint32_t lam[8], u[8], x3[8], y3[8];
   fp_sub<Fq>(lam, y2, y1);
-  fp_mul<Fq>(lam, lam, u);
+  fp_mul<Fq>(lam, lam, dinv);
   fp_mul<Fq>(u, lam, lam);
   fp_sub<Fq>(u, u, x1);
   fp_sub<Fq>(x3, u, x2);
   fp_sub<Fq>(u, x1, x3);
   fp_mul<Fq>(u, lam, u);
   fp_sub<Fq>(y3, u, y1);
-  const int32_t f = flags[t];
   const bool i1 = (f & FB_INF1) != 0, i2 = (f & FB_INF2) != 0, bad = (f & FB_BAD) != 0;
-  st_fp(xo + t * 8, i2 ? x1 : (i1 ? x2 : x3));
-  st_fp(yo + t * 8, i2 ? y1 : (i1 ? y2 : y3));
-  info[t] = (i1 && i2) || bad;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {  // limb by limb: no array is picked by pointer
+    xo[j] = i2 ? x1[j] : (i1 ? x2[j] : x3[j]);
+    yo[j] = i2 ? y1[j] : (i1 ? y2[j] : y3[j]);
+  }
+  return (i1 && i2) || bad;
+}
+
+// fb_pair_combine, pair t of the (P, 2H) arrays (what the g++ suite calls; the
+// kernel reads the same operands from its shared-memory tiles).
+ZK_HD void fb_pair_combine_lane(const uint32_t *x, const uint32_t *y, const uint32_t *dinv,
+                                const int32_t *flags, uint32_t *xo, uint32_t *yo, int32_t *info,
+                                long long t, long long H) {
+  const long long i = fb_pair_first(t, H);
+  uint32_t x1[8], x2[8], y1[8], y2[8], u[8], ox[8], oy[8];
+  ld_fp(x1, x + i * 8);
+  ld_fp(x2, x + (i + H) * 8);
+  ld_fp(y1, y + i * 8);
+  ld_fp(y2, y + (i + H) * 8);
+  ld_fp(u, dinv + t * 8);
+  info[t] = fb_pair_combine_pair(x1, x2, y1, y2, u, flags[t], ox, oy);
+  st_fp(xo + t * 8, ox);
+  st_fp(yo + t * 8, oy);
 }
 
 // fb_fold: the width of the next fold of n points: 8-to-1 while 8 divides n

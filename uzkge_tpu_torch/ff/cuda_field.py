@@ -36,3 +36,36 @@ def fp_mont_mul(ctx: MontField, a, b):
                        a.numel() // 8, 0 if ctx is fr else 1, kernels.stream_of(a))
         kernels.LAUNCHES["fp_mont_mul"] += 1
     return out
+
+
+CHAINS = 4  # independent chains per thread of fp_mul_chain (csrc/mont_mul.cu FP_CHAINS)
+
+
+def fp_mul_chain_plain(ctx: MontField, a, b, iters: int):
+    """Torch-op version of the fp_mul_chain kernel."""
+    out = a
+    for _ in range(iters):
+        out = ctx.mul(out, b.expand_as(a))
+    return out
+
+
+def fp_mul_chain(ctx: MontField, a, b, iters: int):
+    """a * b^iters * R^-iters: `iters` Montgomery products in a row on each of
+    the CHAINS chains of a (CHAINS, N, 8), b (N, 8).  The kernel measures the
+    product rate of the card (one thread per n runs its CHAINS chains side by
+    side); it is no part of the prover."""
+    if ctx is not fr and ctx is not fq:
+        raise ValueError("fp_mul_chain: ctx must be ff.field.fr or ff.field.fq")
+    if a.dim() != 3 or a.shape[0] != CHAINS or iters < 0:
+        raise ValueError(f"fp_mul_chain: a of shape {tuple(a.shape)}, iters {iters}: want "
+                         f"({CHAINS}, N, 8) and iters >= 0")
+    N, dev = a.shape[1], a.device
+    kernels.check(a, "a", (CHAINS, N, 8), dev)
+    kernels.check(b, "b", (N, 8), dev)
+    if not kernels.use_kernel(dev, "fp_mul_chain"):
+        return fp_mul_chain_plain(ctx, a, b, iters)
+    out = torch.empty_like(a)
+    kernels.launch("fp_mul_chain_launch", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, iters,
+                   0 if ctx is fr else 1, kernels.stream_of(a))
+    kernels.LAUNCHES["fp_mul_chain"] += 1
+    return out

@@ -26,14 +26,15 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("ntt.cu", "msm.cu", "mont_mul.cu", "fixed_base.cu", "fixed_base_query.cu",
            "scan_reduce.cu")
-HEADERS = ("field.cuh", "fixed_base.cuh", "fixed_base_query.cuh", "scan_reduce.cuh")
+HEADERS = ("field.cuh", "fixed_base.cuh", "fixed_base_query.cuh", "scan_reduce.cuh",
+           "ntt.cuh", "launch.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 # launch counts per kernel: plain integers, reset by reset_launches()
 LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
             "fp_mont_mul": 0, "fb_bases": 0, "fb_mult_chunk": 0, "fq_batch_inv": 0,
             "fb_select": 0, "fb_pair_den": 0, "fb_pair_combine": 0, "fb_fold": 0,
-            "scan_leaf_reduce": 0, "scan_proj_reduce": 0}
+            "scan_leaf_reduce": 0, "scan_proj_reduce": 0, "fp_mul_chain": 0}
 # calls of each C entry point, one CUDA kernel launch each (fq_batch_inv's
 # three kinds of launch apart): counted by launch(), reset by reset_launches()
 CALLS = {}
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "msm_bucket_reduce_launch": [_P, _P, _I, _I, _P],
     # a, b, out, N, field (0 = Fr, 1 = Fq), stream
     "fp_mont_mul_launch": [_P, _P, _P, _L, _I, _P],
+    # a, b, out, N, iters, field, stream
+    "fp_mul_chain_launch": [_P, _P, _P, _L, _I, _I, _P],
     # x, y, ox, oy, oz, n, W, c, stream
     "fb_bases_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # tx, ty, tz, bx, by, ox, oy, oz, fx, fy, fz, K, CH, stream
