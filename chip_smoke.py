@@ -65,9 +65,9 @@ Phases, any failure exits nonzero:
      every shape the proof launched, against its plain version, timed; then
      msm_chain at the same shape (P = 8 dense rows, n = 16384: 2^21 leaves
      per MSM; one leaf round with S = 32, projective rounds with S = 32,
-     32, 32, 2), the chain build and every round against its plain version,
-     timed beside it, its points against the query's, its whole call timed
-     beside the query's;
+     32, 32, 2), fb_bases at the chain's shape (W = 256, c = 1), the chain
+     build and every round against its plain version, timed beside it, its
+     points against the query's, its whole call timed beside the query's;
   6. the sharded path (parallel/), this slice's main path: an NCCL process
      group of world size 1 over a FileStore in a temporary directory (the
      collectives run on the card at that size); sharded_msm_device_sums and
@@ -84,7 +84,10 @@ Phases, any failure exits nonzero:
      bound worked out from this run's shapes and what bounds it, and the time
      of one PyTorch call computing the same function where there is one:
      only fb_select's gather; no PyTorch call computes a BN254 NTT, MSM,
-     table or group addition); ntt_pass and fb_pair_combine also give their
+     table or group addition); fb_bases has two rows, the table build's
+     (c = 8, one launch per build) and the chain's (fb_bases_chain: W = 256,
+     c = 1, its launches the group proof's, one per msm_chain call);
+     ntt_pass and fb_pair_combine also give their
      per-proof device time in the profiled proof (proof_ms), the sum over
      the proof's launches of their timed shapes (proof_events_ms) and the
      per-proof bound summed likewise (proof_bound_ms); the card line, and
@@ -112,7 +115,9 @@ group operations count the products of the complete formulas of Renes,
 Costello and Batina for a = 0 (RCB): a mixed addition (Alg. 8) 11, a
 projective addition (Alg. 7) 12, a doubling (Alg. 9) 8.  Their products by
 b3 = 3 * 3 = 9 cost no multiply (three doublings and an addition, as
-field.cuh's g1_madd and g1_padd do them); the kernels double with g1_padd.
+field.cuh's g1_madd and g1_padd do them); the kernels double with Alg. 7
+(g1_padd, or g1_dbl_ls in fb_bases: 12 products), so a doubling's bound
+counts fewer products than they run.
 A batch inversion of N elements needs 3 (N - 1) products and one Fermat
 inversion: the yardstick stays that, though fq_batch_inv inverts its group
 products by safegcd.  An affine pair addition given the inverse needs 3
@@ -172,9 +177,19 @@ def bound(nbytes: int, products: int, rate: float) -> dict:
 
 
 def cuda_ms(fn, reps: int = 5):
-    """Mean milliseconds of fn() on the card over `reps` calls after one
-    warm-up call (reps = 0: one cold call, timed), and the last result."""
-    out = fn() if reps else None
+    """Mean milliseconds of fn() on the card over `reps` calls after two
+    warm-up calls (reps = 0: one cold call, timed), and the last result.
+    Each timed call runs while the last one's outputs are alive, so it
+    needs a second set of output memory: the first warm-up's outputs are
+    held through the second, which leaves two sets in the caching allocator
+    and no cudaMalloc inside the timed calls (with one warm-up, the first
+    timed call allocated the second set: 805 MB for fb_mult_chunk at the
+    table build's shape)."""
+    out = None
+    if reps:
+        held = fn()
+        out = fn()
+        del held
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1103,9 +1118,9 @@ OTHER_ROUTES = ("fb_select", "msm_bucket_accumulate")
 
 def chain_rounds(errs, x, y, sc, shape_tag, rate=None):
     """msm_chain's kernels on (x, y, sc), each against its plain version on
-    the same inputs and timed beside it (CUDA events, mean of 3): the chain
-    build (fb_bases, fq_batch_inv, fp_mont_mul), the leaf round, every
-    projective round.  Returns the per-kernel rows (times, bytes and
+    the same inputs and timed beside it (CUDA events, mean of 3): fb_bases
+    at the chain's shape (W = 256, c = 1) alone, the chain build (fb_bases,
+    fq_batch_inv, fp_mont_mul), the leaf round, every projective round.  Returns the per-kernel rows (times, bytes and
     products summed over the rounds; bounds where `rate` is given) and the
     chain MSM's output (X, Y, Z)."""
     from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul_plain
@@ -1121,7 +1136,13 @@ def chain_rounds(errs, x, y, sc, shape_tag, rate=None):
         zinv = fb.fq_batch_inv_plain(BZ)
         return fp_mont_mul_plain(fq, BX, zinv), fp_mont_mul_plain(fq, BY, zinv)
 
-    (ax, ay), ms, pms = compare(errs, "chain", f"{shape_tag} n={n} W=256 c=1",
+    shape = f"n={n} W={2 * W} c=1"
+    _, ms, pms = compare(errs, "fb_bases_chain", shape, lambda: fb.fb_bases(x, y, 2 * W, 1),
+                         lambda: fb.fb_bases_plain(x, y, 2 * W, 1))
+    # the chain build's doublings (counted as RCB Alg. 9's); the points read, the rows written
+    bases = {"ms": ms, "plain_ms": pms, "shape": shape, "bytes": 64 * n + 96 * 2 * W * n,
+             "products": DBL_PRODUCTS * n * (2 * W - 1)}
+    (ax, ay), ms, pms = compare(errs, "chain", f"{shape_tag} {shape}",
                                 lambda: fb.build_bases(x, y, 2 * W, 1), chain_plain)
     log(f"chain build (fb_bases, fq_batch_inv, fp_mont_mul) n={n}: {ms:.4f} ms, plain {pms:.4f} ms")
     d = fb.scalars_to_digits(sc, 2, 256).transpose(1, 2).reshape(P, K).contiguous()
@@ -1134,7 +1155,8 @@ def chain_rounds(errs, x, y, sc, shape_tag, rate=None):
     rows = torch.unique(fb.chain_rows(d, n)[nz]).numel()  # chain rows the leaves need
     lanes = P * (K // S)
     # one mixed addition per nonzero leaf; its digit and its chain row read, a lane written
-    res = {"scan_leaf_reduce": {"ms": ms, "plain_ms": pms, "shape": shape,
+    res = {"fb_bases_chain": bases,
+           "scan_leaf_reduce": {"ms": ms, "plain_ms": pms, "shape": shape,
                                 "bytes": 4 * P * K + 64 * rows + 96 * lanes,
                                 "products": MADD_PRODUCTS * int(nz.sum())}}
     proj = {"ms": 0.0, "plain_ms": 0.0, "shape": [], "bytes": 0, "products": 0}
@@ -1355,6 +1377,7 @@ def main():
     launches.update({k: launches_vb[k] for k in VB_KERNELS})
     launches.update({k: fb_launches[k] for k in SETUP_KERNELS})
     launches.update({k: group_launches[k] for k in ("scan_leaf_reduce", "scan_proj_reduce")})
+    launches["fb_bases_chain"] = group_launches["fb_bases"]  # one per msm_chain call
 
     fb_src = "uzkge_tpu_torch/csrc/fixed_base.cu"
     q_src = "uzkge_tpu_torch/csrc/fixed_base_query.cu"
@@ -1367,6 +1390,7 @@ def main():
         ("fp_mont_mul", "uzkge_tpu_torch/csrc/mont_mul.cu", "uzkge_tpu/ff/pallas_field.py:69",
          qres["fp_mont_mul"]),
         ("fb_bases", fb_src, f"{jfb}:232", fbres["fb_bases"]),
+        ("fb_bases_chain", fb_src, f"{jfb}:232", chain["fb_bases_chain"]),
         ("fb_mult_chunk", fb_src, f"{jfb}:254", fbres["fb_mult_chunk"]),
         # _prod_kernel, _inv_kernel (pbatch_inv_fq); _prefix_kernel, _invback_kernel,
         # _fermat_bits_kernel (pbatch_inv_fq_fast)

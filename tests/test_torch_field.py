@@ -103,6 +103,31 @@ struct SerialBlock {
   template <class F> void each(F f) { for (int t = 0; t < B; t++) f(t, r[t]); }
   void sync() {}
 };
+// the lockstep forms, groups of N values at a time (n a multiple of N)
+template <class F, int N> void mul_ls(uint32_t *r, const uint32_t *a, const uint32_t *b, int n) {
+  for (int i = 0; i < n; i += N) {
+    uint32_t x[N][8], y[N][8], z[N][8];
+    for (int k = 0; k < N; k++) for (int j = 0; j < 8; j++) {
+      x[k][j] = a[8 * (i + k) + j]; y[k][j] = b ? b[8 * (i + k) + j] : 0; }
+    if (b) fp_mul_n<F, N>(z, x, y); else fp_sqr_n<F, N>(z, x);
+    for (int k = 0; k < N; k++) for (int j = 0; j < 8; j++) r[8 * (i + k) + j] = z[k][j];
+  } }
+template <class F> void mul_ls_f(uint32_t *r, const uint32_t *a, const uint32_t *b, int n, int N) {
+  switch (N) {
+    case 1: mul_ls<F, 1>(r, a, b, n); break; case 2: mul_ls<F, 2>(r, a, b, n); break;
+    case 3: mul_ls<F, 3>(r, a, b, n); break; case 4: mul_ls<F, 4>(r, a, b, n); break;
+    case 5: mul_ls<F, 5>(r, a, b, n); break; case 6: mul_ls<F, 6>(r, a, b, n); break; } }
+static void get_p(G1Proj &a, const uint32_t *p) {
+  for (int j = 0; j < 8; j++) { a.x[j] = p[j]; a.y[j] = p[8+j]; a.z[j] = p[16+j]; } }
+static void put_p(uint32_t *r, const G1Proj &o) {
+  for (int j = 0; j < 8; j++) { r[j] = o.x[j]; r[8+j] = o.y[j]; r[16+j] = o.z[j]; } }
+template <int G> void dbl_ls(uint32_t *r, const uint32_t *p, int n) {
+  for (int i = 0; i < n; i++) {
+    G1Proj a; get_p(a, p + 24 * i); g1_dbl_ls<G>(a, a); put_p(r + 24 * i, a); } }
+template <int G> void madd_ls(uint32_t *r, const uint32_t *p, const uint32_t *q, int n) {
+  for (int i = 0; i < n; i++) {
+    G1Proj a; get_p(a, p + 24 * i); g1_madd_ls<G>(a, a, q + 16 * i, q + 16 * i + 8);
+    put_p(r + 24 * i, a); } }
 extern "C" {
 #define BIN(name, F, fn) \
   void name(uint32_t *r, const uint32_t *a, const uint32_t *b, int n) { \
@@ -128,6 +153,21 @@ void g1_padd_n(uint32_t *r, const uint32_t *p, const uint32_t *q, int n) {
     g1_padd(o, a, b);
     for (int j = 0; j < 8; j++) { r[24*i+j] = o.x[j]; r[24*i+8+j] = o.y[j]; r[24*i+16+j] = o.z[j]; }
   } }
+// b = NULL: squares a
+void fr_mul_ls(uint32_t *r, const uint32_t *a, const uint32_t *b, int n, int N) {
+  mul_ls_f<Fr>(r, a, b, n, N); }
+void fq_mul_ls(uint32_t *r, const uint32_t *a, const uint32_t *b, int n, int N) {
+  mul_ls_f<Fq>(r, a, b, n, N); }
+void g1_dbl_ls_n(uint32_t *r, const uint32_t *p, int n, int G) {
+  switch (G) {
+    case 1: dbl_ls<1>(r, p, n); break; case 2: dbl_ls<2>(r, p, n); break;
+    case 3: dbl_ls<3>(r, p, n); break; case 4: dbl_ls<4>(r, p, n); break;
+    case 5: dbl_ls<5>(r, p, n); break; case 6: dbl_ls<6>(r, p, n); break; } }
+void g1_madd_ls_n(uint32_t *r, const uint32_t *p, const uint32_t *q, int n, int G) {
+  switch (G) {
+    case 1: madd_ls<1>(r, p, q, n); break; case 2: madd_ls<2>(r, p, q, n); break;
+    case 3: madd_ls<3>(r, p, q, n); break; case 4: madd_ls<4>(r, p, q, n); break;
+    case 5: madd_ls<5>(r, p, q, n); break; case 6: madd_ls<6>(r, p, q, n); break; } }
 void g1_identity(uint32_t *r) {
   G1Proj o; g1_set_identity(o);
   for (int j = 0; j < 8; j++) { r[j] = o.x[j]; r[8+j] = o.y[j]; r[16+j] = o.z[j]; }
@@ -202,6 +242,9 @@ def header_lib(tmp_path_factory):
         getattr(lib, fn).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     for fn in ("fq_neg_n", "fq_mul9_n", "fq_inv_mont_n"):
         getattr(lib, fn).argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    for fn in ("fr_mul_ls", "fq_mul_ls", "g1_madd_ls_n"):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    lib.g1_dbl_ls_n.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     lib.g1_identity.argtypes = [ctypes.c_void_p]
     lib.fb_bases_n.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     lib.fb_mult_chunk_n.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
@@ -298,6 +341,67 @@ def test_curve_header_matches_host_bn254(header_lib):
     ident = np.zeros(24, np.uint32)
     header_lib.g1_identity(ident.ctypes.data)
     assert _affine(ident[None]) == [None]
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("name,p,jctx,tctx", CASES, ids=[c[0] for c in CASES])
+def test_lockstep_products_match_fp_mul(header_lib, name, p, jctx, tctx, N):
+    """fp_mul_n (N products in lockstep) and fp_sqr_n, compiled by g++,
+    against fp_mul limb for limb on 1020 seeded values with 0, 1, p - 1 and
+    values near 2^254 among them (their product by fp_mul is held against
+    the JAX package above)."""
+    a = _values(p, 1013, 40 + N)
+    b = list(reversed(_values(p, 1013, 50 + N)))
+    assert len(a) % N == 0
+    ua, ub = (tctx.to_mont_limbs(v, "cpu").numpy().view(np.uint32).copy() for v in (a, b))
+    want = _call(getattr(header_lib, f"{name}_mul_n"), 8, ua, ub)
+    lock = getattr(header_lib, f"{name}_mul_ls")
+    got = np.zeros_like(ua)
+    lock(got.ctypes.data, ua.ctypes.data, ub.ctypes.data, len(a), N)
+    assert (got == want).all()
+    want = _call(getattr(header_lib, f"{name}_mul_n"), 8, ua, ua)
+    lock(got.ctypes.data, ua.ctypes.data, None, len(a), N)
+    assert (got == want).all()
+
+
+def _lockstep_points():
+    """Projective rows T (random z's) and affine rows B for the lockstep
+    curve tests: random pairs, then T the identity, T = B, T = -B."""
+    rs = np.random.default_rng(41)
+    pts = [g1_mul(G1_GEN, int(k)) for k in rs.integers(1, 1 << 62, size=15)]
+    lhs = pts[:6] + [None, pts[12], pts[13]]
+    rhs = pts[6:12] + [pts[14], pts[12], g1_neg(pts[13])]
+    zs = [int(z) % Q_MOD or 1 for z in rs.integers(2, 1 << 62, size=len(lhs))]
+    aff = np.stack([tf.fq.to_mont_limbs([q[0], q[1]], "cpu").numpy().view(np.uint32).reshape(16)
+                    for q in rhs])
+    return _proj_rows(lhs, zs), aff, lhs, rhs
+
+
+@pytest.mark.parametrize("G", [6, 5, 4, 3, 2, 1])
+def test_lockstep_double_matches_padd(header_lib, G):
+    """g1_dbl_ls (RCB Alg. 7 with P = Q: six squarings, then six products,
+    in lockstep groups of at most G), compiled by g++, against g1_padd(T, T,
+    T) limb for limb, the identity among the T's; and against the host
+    doubling."""
+    T, _, lhs, _ = _lockstep_points()
+    want = _call(header_lib.g1_padd_n, 24, T, T)
+    got = np.zeros_like(T)
+    header_lib.g1_dbl_ls_n(got.ctypes.data, T.ctypes.data, len(T), G)
+    assert (got == want).all()
+    assert _affine(got) == [g1_add(q, q) for q in lhs]
+
+
+@pytest.mark.parametrize("G", [6, 5, 4, 3, 2, 1])
+def test_lockstep_madd_matches_madd(header_lib, G):
+    """g1_madd_ls (RCB Alg. 8, products in lockstep groups of at most G),
+    compiled by g++, against g1_madd limb for limb: random points, T the
+    identity, T = B and T = -B; and against the host addition."""
+    T, aff, lhs, rhs = _lockstep_points()
+    want = _call(header_lib.g1_madd_n, 24, T, aff)
+    got = np.zeros_like(T)
+    header_lib.g1_madd_ls_n(got.ctypes.data, T.ctypes.data, aff.ctypes.data, len(T), G)
+    assert (got == want).all()
+    assert _affine(got) == [g1_add(x, y) for x, y in zip(lhs, rhs)]
 
 
 def _jax_v(vals):

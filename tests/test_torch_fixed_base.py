@@ -284,6 +284,48 @@ def test_fixed_base_kernels_match_plain(cuda_device):
 
 
 @pytest.mark.on_cuda
+@pytest.mark.parametrize("n,W,c", [(100, 256, 1), (16384, 256, 1), (20000, 4, 8), (100, 32, 8)])
+def test_fb_bases_matches_plain(cuda_device, n, W, c):
+    """fb_bases on the card against its plain version at msm_chain's shape
+    (W = 256, c = 1, n = 16384) and at lane counts that leave the last
+    block partly empty (n = 100: blocks of 32; n = 20000: blocks of 128),
+    on seeded canonical values (the formulas are exact on any field
+    elements)."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + c)
+    x, y = (torch.randint(-(1 << 31), 1 << 31, (n, 8), dtype=torch.int32, device=cuda_device,
+                          generator=g) for _ in range(2))
+    x[:, 7] &= 0x0FFFFFFF
+    y[:, 7] &= 0x0FFFFFFF
+    before = kernels.LAUNCHES["fb_bases"]
+    got = fb.fb_bases(x, y, W, c)
+    assert kernels.LAUNCHES["fb_bases"] == before + 1
+    for g_, w in zip(got, fb.fb_bases_plain(x, y, W, c)):
+        assert torch.equal(g_, w)
+
+
+@pytest.mark.on_cuda
+@pytest.mark.parametrize("K,CH", [(1000, 16), (1000, 1), (4096, 3)])
+def test_fb_mult_chunk_matches_plain(cuda_device, K, CH):
+    """fb_mult_chunk on the card against its plain version at lane counts
+    that are (4096) and are not (1000) a multiple of its block, on seeded
+    canonical values with T = B, T = -B and T the identity planted."""
+    g = torch.Generator(device=cuda_device).manual_seed(K + CH)
+    tx, ty, tz, bx, by = (torch.randint(-(1 << 31), 1 << 31, (K, 8), dtype=torch.int32,
+                                        device=cuda_device, generator=g) for _ in range(5))
+    for t in (tx, ty, tz, bx, by):
+        t[:, 7] &= 0x0FFFFFFF
+    one = tf.fq.const(1, cuda_device)
+    tx[0], ty[0], tz[0] = bx[0], by[0], one  # T = B
+    tx[1], ty[1], tz[1] = bx[1], tf.fq.neg(by[1]), one  # T = -B
+    tx[2], ty[2], tz[2] = 0, one, 0  # the identity
+    before = kernels.LAUNCHES["fb_mult_chunk"]
+    got = fb.fb_mult_chunk(tx, ty, tz, bx, by, CH)
+    assert kernels.LAUNCHES["fb_mult_chunk"] == before + 1
+    for g_, w in zip(got, fb.fb_mult_chunk_plain(tx, ty, tz, bx, by, CH)):
+        assert torch.equal(g_, w)
+
+
+@pytest.mark.on_cuda
 @pytest.mark.parametrize("N", [1, 2, 4095, 4096, 4097, 2**21, 8 * 2**20])
 def test_fq_batch_inv_matches_plain(cuda_device, N):
     """fq_batch_inv on the card against its plain version at N up to the

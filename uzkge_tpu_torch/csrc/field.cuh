@@ -114,6 +114,19 @@ ZK_HD void fp_neg(uint32_t r[8], const uint32_t a[8]) {
 // Montgomery product: a PTX form with mad.lo.cc / madc.hi.cc carry chains
 // was measured beside it on the H100 (uzkge_tpu_torch/product_forms.py) and
 // ran slower inside the kernels.
+//
+// One fp_mul is one dependency chain through its carries.  Where a formula
+// has independent products, fp_mul_n below issues N of them word by word in
+// lockstep, and fp_sqr_n squares with fewer word products (the table
+// build's fb_bases and fb_mult_chunk do, through g1_dbl_ls / g1_madd_ls in
+// pairs; every other kernel calls fp_mul).  ptxas already interleaves the
+// independent fp_mul calls of an unrolled formula: in the SASS of g1_padd
+// and g1_madd (sm_90a) almost no multiply-add reads the result of the
+// instruction just before it.  So the lockstep buys little: pairs ran
+// 1.5 % (fb_bases) and 3 % (fb_mult_chunk) faster than one product at a
+// time on an H100 80GB HBM3 at 700 W, where these kernels are bound by the
+// count of instructions issued (uzkge_tpu_torch/tune_fixed_base.py;
+// PERF.md).
 template <class F>
 ZK_HD void fp_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   uint32_t t[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
@@ -138,6 +151,153 @@ ZK_HD void fp_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
     t[7] = (uint32_t)(c + t[8]);  // < 2^32: T < 2^255 after the round
   }
   fp_reduce_once<F>(r, t, 0);
+}
+
+// N independent products in lockstep: r[k] = a[k] * b[k] * 2^-256 mod p for
+// k < N.  Each product runs fp_mul's CIOS rounds on the same words, so each
+// r[k] equals fp_mul(a[k], b[k]) limb for limb; only the order in which the N
+// products' instructions are issued differs.  A round runs over the word j
+// of a with the product k innermost, so neighbouring multiply-adds belong to
+// different products and none waits on its neighbour's carry.  All of a and
+// b is read before r is written, so r may alias any of them.
+template <class F, int N>
+ZK_HD void fp_mul_n(uint32_t r[][8], const uint32_t a[][8], const uint32_t b[][8]) {
+  uint32_t t[N][9];
+  uint64_t c[N];
+#pragma unroll
+  for (int k = 0; k < N; k++)
+#pragma unroll
+    for (int j = 0; j < 9; j++) t[k][j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+#pragma unroll
+    for (int k = 0; k < N; k++) c[k] = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++)
+#pragma unroll
+      for (int k = 0; k < N; k++) {
+        c[k] += (uint64_t)a[k][j] * b[k][i] + t[k][j];
+        t[k][j] = (uint32_t)c[k];
+        c[k] >>= 32;
+      }
+    uint32_t m[N];
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      t[k][8] = (uint32_t)c[k];
+      m[k] = t[k][0] * F::inv();
+      c[k] = ((uint64_t)m[k] * F::p(0) + t[k][0]) >> 32;
+    }
+#pragma unroll
+    for (int j = 1; j < 8; j++)
+#pragma unroll
+      for (int k = 0; k < N; k++) {
+        c[k] += (uint64_t)m[k] * F::p(j) + t[k][j];
+        t[k][j - 1] = (uint32_t)c[k];
+        c[k] >>= 32;
+      }
+#pragma unroll
+    for (int k = 0; k < N; k++) t[k][7] = (uint32_t)(c[k] + t[k][8]);
+  }
+#pragma unroll
+  for (int k = 0; k < N; k++) fp_reduce_once<F>(r[k], t[k], 0);
+}
+
+// N independent Montgomery squarings in lockstep: r[k] = a[k]^2 * 2^-256 mod
+// p.  The square is formed whole first, 36 word products instead of 64 (the
+// 28 products a_i a_j with i < j, doubled by a shift, plus the 8 a_i^2), into
+// 16 words; then 8 rounds of word-by-word reduction (T += m p 2^(32 i), m =
+// T_i (-p^-1) mod 2^32) clear the low half, 64 more products.  T < p^2 +
+// 2^256 p < 2^511 throughout, and the high half ends below 2p: one
+// conditional subtraction leaves the canonical a^2 R^-1, which is fp_mul(a,
+// a) limb for limb.  Loops as in fp_mul_n, the product k innermost; r may
+// alias a.
+template <class F, int N>
+ZK_HD void fp_sqr_n(uint32_t r[][8], const uint32_t a[][8]) {
+  uint32_t t[N][16];
+  uint64_t c[N];
+#pragma unroll
+  for (int k = 0; k < N; k++)
+#pragma unroll
+    for (int j = 0; j < 16; j++) t[k][j] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; i++) {  // row i: a_i a_j for j > i into words i + j
+#pragma unroll
+    for (int k = 0; k < N; k++) c[k] = 0;
+#pragma unroll
+    for (int j = i + 1; j < 8; j++)
+#pragma unroll
+      for (int k = 0; k < N; k++) {
+        c[k] += (uint64_t)a[k][i] * a[k][j] + t[k][i + j];
+        t[k][i + j] = (uint32_t)c[k];
+        c[k] >>= 32;
+      }
+#pragma unroll
+    for (int k = 0; k < N; k++) t[k][i + 8] = (uint32_t)c[k];  // not yet written
+  }
+#pragma unroll
+  for (int k = 0; k < N; k++) {  // double: the cross terms are below 2^507
+#pragma unroll
+    for (int j = 15; j > 0; j--) t[k][j] = (t[k][j] << 1) | (t[k][j - 1] >> 31);
+    t[k][0] <<= 1;
+    c[k] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; i++)  // the diagonal a_i^2 into words 2i, 2i + 1
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      const uint64_t d = (uint64_t)a[k][i] * a[k][i];
+      c[k] += (uint64_t)t[k][2 * i] + (uint32_t)d;
+      t[k][2 * i] = (uint32_t)c[k];
+      c[k] >>= 32;
+      c[k] += (uint64_t)t[k][2 * i + 1] + (d >> 32);
+      t[k][2 * i + 1] = (uint32_t)c[k];
+      c[k] >>= 32;
+    }
+  uint32_t hi[N];  // the carry into word i + 8 left by round i - 1
+#pragma unroll
+  for (int k = 0; k < N; k++) hi[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint32_t m[N];
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      m[k] = t[k][i] * F::inv();
+      c[k] = ((uint64_t)m[k] * F::p(0) + t[k][i]) >> 32;
+    }
+#pragma unroll
+    for (int j = 1; j < 8; j++)
+#pragma unroll
+      for (int k = 0; k < N; k++) {
+        c[k] += (uint64_t)m[k] * F::p(j) + t[k][i + j];
+        t[k][i + j] = (uint32_t)c[k];
+        c[k] >>= 32;
+      }
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      c[k] += (uint64_t)t[k][i + 8] + hi[k];
+      t[k][i + 8] = (uint32_t)c[k];
+      hi[k] = (uint32_t)(c[k] >> 32);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; k++) fp_reduce_once<F>(r[k], t[k] + 8, 0);  // hi[k] is 0: T < 2^511
+}
+
+// N independent products issued in lockstep groups of at most G: G = N is
+// one group, G = 1 is fp_mul after fp_mul.  A narrower group holds fewer
+// products' words in registers at once.
+template <class F, int N, int G>
+ZK_HD void fp_mul_groups(uint32_t r[][8], const uint32_t a[][8], const uint32_t b[][8]) {
+  constexpr int H = G < N ? G : N;
+  fp_mul_n<F, H>(r, a, b);
+  if constexpr (N > H) fp_mul_groups<F, N - H, G>(r + H, a + H, b + H);
+}
+
+template <class F, int N, int G>
+ZK_HD void fp_sqr_groups(uint32_t r[][8], const uint32_t a[][8]) {
+  constexpr int H = G < N ? G : N;
+  fp_sqr_n<F, H>(r, a);
+  if constexpr (N > H) fp_sqr_groups<F, N - H, G>(r + H, a + H);
 }
 
 ZK_HD void fp_copy(uint32_t r[8], const uint32_t a[8]) {
@@ -251,4 +411,87 @@ ZK_HD void g1_padd(G1Proj &out, const G1Proj &p, const G1Proj &q) {
   fp_copy(out.x, X3);
   fp_copy(out.y, Y3);
   fp_copy(out.z, Z3);
+}
+
+// ------------------------------------------- G1 with products in lockstep
+// The same RCB formulas with each stage's mutually independent products
+// issued together through fp_mul_groups (groups of at most G; G = 1 issues
+// them one by one).  Every addition, subtraction and fp_mul9 is g1_padd's /
+// g1_madd's on the same values, and each product returns the canonical
+// a*b*R^-1 whatever the schedule, so the outputs equal theirs limb for limb.
+
+// The second stage that Alg. 7 and Alg. 8 share, from the first stage's
+// values t0 = 3 X1 X2, t1 = Y1 Y2 - b3 Z1 Z2, t3, t4, Y3 = b3 (...), Z3 =
+// Y1 Y2 + b3 Z1 Z2: six independent products, then X3 = t3 t1 - t4 Y3,
+// Y3 = t1 Z3 + Y3 t0, Z3 = Z3 t4 + t0 t3.
+template <int G>
+ZK_HD void g1_rcb_tail_ls(G1Proj &out, const uint32_t t0[8], const uint32_t t1[8],
+                          const uint32_t t3[8], const uint32_t t4[8], const uint32_t Y3[8],
+                          const uint32_t Z3[8]) {
+  uint32_t a[6][8], b[6][8], r[6][8];
+  fp_copy(a[0], t4); fp_copy(b[0], Y3);
+  fp_copy(a[1], t3); fp_copy(b[1], t1);
+  fp_copy(a[2], Y3); fp_copy(b[2], t0);
+  fp_copy(a[3], t1); fp_copy(b[3], Z3);
+  fp_copy(a[4], t0); fp_copy(b[4], t3);
+  fp_copy(a[5], Z3); fp_copy(b[5], t4);
+  fp_mul_groups<Fq, 6, G>(r, a, b);
+  fp_sub<Fq>(out.x, r[1], r[0]);
+  fp_add<Fq>(out.y, r[3], r[2]);
+  fp_add<Fq>(out.z, r[5], r[4]);
+}
+
+// RCB Alg. 7 with P = Q: out = 2p, equal to g1_padd(out, p, p) limb for
+// limb.  First stage: the six Montgomery squarings X^2, Y^2, Z^2, (X+Y)^2,
+// (Y+Z)^2, (X+Z)^2; then the shared tail.  `out` may alias `p`.
+template <int G>
+ZK_HD void g1_dbl_ls(G1Proj &out, const G1Proj &p) {
+  uint32_t s[6][8], q[6][8];
+  fp_copy(s[0], p.x);
+  fp_copy(s[1], p.y);
+  fp_copy(s[2], p.z);
+  fp_add<Fq>(s[3], p.x, p.y);
+  fp_add<Fq>(s[4], p.y, p.z);
+  fp_add<Fq>(s[5], p.x, p.z);
+  fp_sqr_groups<Fq, 6, G>(q, s);
+  uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], u[8], Y3[8], Z3[8];
+  fp_add<Fq>(u, q[0], q[1]);
+  fp_sub<Fq>(t3, q[3], u);  // 2XY
+  fp_add<Fq>(u, q[1], q[2]);
+  fp_sub<Fq>(t4, q[4], u);  // 2YZ
+  fp_add<Fq>(u, q[0], q[2]);
+  fp_sub<Fq>(Y3, q[5], u);  // 2XZ
+  fp_add<Fq>(u, q[0], q[0]);
+  fp_add<Fq>(t0, u, q[0]);
+  fp_mul9<Fq>(t2, q[2]);
+  fp_add<Fq>(Z3, q[1], t2);
+  fp_sub<Fq>(t1, q[1], t2);
+  fp_mul9<Fq>(Y3, Y3);
+  g1_rcb_tail_ls<G>(out, t0, t1, t3, t4, Y3, Z3);
+}
+
+// RCB Alg. 8 (projective + affine (x2, y2)), equal to g1_madd limb for limb:
+// the five first-stage products X1 x2, Y1 y2, (x2+y2)(X1+Y1), y2 Z1, x2 Z1,
+// then the shared tail.  `out` may alias `p`.
+template <int G>
+ZK_HD void g1_madd_ls(G1Proj &out, const G1Proj &p, const uint32_t x2[8], const uint32_t y2[8]) {
+  uint32_t a[5][8], b[5][8], q[5][8];
+  fp_copy(a[0], p.x); fp_copy(b[0], x2);
+  fp_copy(a[1], p.y); fp_copy(b[1], y2);
+  fp_add<Fq>(a[2], x2, y2); fp_add<Fq>(b[2], p.x, p.y);
+  fp_copy(a[3], y2); fp_copy(b[3], p.z);
+  fp_copy(a[4], x2); fp_copy(b[4], p.z);
+  fp_mul_groups<Fq, 5, G>(q, a, b);
+  uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], u[8], Y3[8], Z3[8];
+  fp_add<Fq>(u, q[0], q[1]);
+  fp_sub<Fq>(t3, q[2], u);
+  fp_add<Fq>(t4, q[3], p.y);
+  fp_add<Fq>(Y3, q[4], p.x);
+  fp_add<Fq>(u, q[0], q[0]);
+  fp_add<Fq>(t0, u, q[0]);
+  fp_mul9<Fq>(t2, p.z);
+  fp_add<Fq>(Z3, q[1], t2);
+  fp_sub<Fq>(t1, q[1], t2);
+  fp_mul9<Fq>(Y3, Y3);
+  g1_rcb_tail_ls<G>(out, t0, t1, t3, t4, Y3, Z3);
 }

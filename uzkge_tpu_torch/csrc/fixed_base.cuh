@@ -227,7 +227,9 @@ ZK_HD void fq_inv_mont(uint32_t r[8], const uint32_t a[8]) {
 // fb_bases, one base point: T = (x : y : 1); for each window w < W, emit T as
 // row w (rows `rs` elements apart) of (ox, oy, oz), then double T c times, so
 // that row w holds 2^(c*w) * P projectively.  The doubling is the complete
-// projective addition T + T (RCB Alg. 7), as in the TPU's _bases_kernel.
+// projective addition T + T (RCB Alg. 7), as in the TPU's _bases_kernel,
+// with its products in lockstep pairs (g1_dbl_ls: equal to g1_padd(T, T,
+// T)).
 ZK_HD void fb_bases_lane(const uint32_t *x, const uint32_t *y, uint32_t *ox, uint32_t *oy,
                          uint32_t *oz, int W, int c, size_t rs) {
   G1Proj T;
@@ -239,14 +241,14 @@ ZK_HD void fb_bases_lane(const uint32_t *x, const uint32_t *y, uint32_t *ox, uin
     st_fp(oy + (size_t)w * rs * 8, T.y);
     st_fp(oz + (size_t)w * rs * 8, T.z);
     if (w + 1 < W)
-      for (int s = 0; s < c; s++) g1_padd(T, T, T);
+      for (int s = 0; s < c; s++) g1_dbl_ls<2>(T, T);
   }
 }
 
 // fb_mult_chunk, one (window, point) lane: T enters as m * B; emit T as row j
 // (rows `rs` elements apart) of (ox, oy, oz), then T += B by the complete
-// mixed addition (RCB Alg. 8), for j < CH; the advanced T = (m + CH) * B goes
-// to (fx, fy, fz).
+// mixed addition (RCB Alg. 8, products in lockstep pairs: g1_madd_ls, equal
+// to g1_madd), for j < CH; the advanced T = (m + CH) * B goes to (fx, fy, fz).
 ZK_HD void fb_mult_chunk_lane(const uint32_t *tx, const uint32_t *ty, const uint32_t *tz,
                               const uint32_t *bx, const uint32_t *by, uint32_t *ox,
                               uint32_t *oy, uint32_t *oz, uint32_t *fx, uint32_t *fy,
@@ -262,7 +264,7 @@ ZK_HD void fb_mult_chunk_lane(const uint32_t *tx, const uint32_t *ty, const uint
     st_fp(ox + (size_t)j * rs * 8, T.x);
     st_fp(oy + (size_t)j * rs * 8, T.y);
     st_fp(oz + (size_t)j * rs * 8, T.z);
-    g1_madd(T, T, Bx, By);
+    g1_madd_ls<2>(T, T, Bx, By);
   }
   st_fp(fx, T.x);
   st_fp(fy, T.y);

@@ -1,6 +1,7 @@
 """Times ntt_pass and fb_pair_combine at the shapes of the 52-card proof on
 one CUDA card, with fb_fold and fq_batch_inv at a P = 8 query's shapes
-beside them, and prints one JSON line.
+beside them, and the table build's curve kernels, the table build and
+msm_chain, and prints one JSON line.
 
     python3 uzkge_tpu_torch/kernel_times.py [--root DIR] [--reps N]
 
@@ -14,7 +15,17 @@ card; each builds its own kernels.  The shapes:
   * fb_pair_combine: the three levels (H = 2^18, 2^17, 2^16) of the queries
     at P = 8, 1, 5, 2 (r1, r2, r3's t split, r5), 12 launches per proof;
   * fb_fold over a P = 8 query's tail (Kc = 65,536 to 1) and fq_batch_inv
-    at N = 2^21, its top level.
+    at N = 2^21, its top level;
+  * fb_bases at the table build's (n 16384, W 32, c 8) and at msm_chain's
+    chain build (n 16384, W 256, c 1), fb_mult_chunk at the table build's
+    (K 524,288, CH 16), and the whole chain build (build_bases at W 256,
+    c = 1: fb_bases, fq_batch_inv, fp_mont_mul);
+  * KZG.lagrange_fb_table() at n = 16384 (c = 8, 4.29 GB), synchronised:
+    wall seconds (mean of 3 builds) and, in one more build under
+    torch.profiler, the device's busy seconds (the union of its events'
+    intervals) and each kernel's device seconds; msm_chain at P = 8 (n =
+    16384, seeded random scalars, the 52-card Lagrange bases), events and
+    the device's busy time in one profiled call.
 Times are CUDA-event means over --reps launches after a warm-up (for a small
 launch they include the host's time between launches), and beside them the
 kernels' device time from torch.profiler (keys *_device); inputs are
@@ -84,6 +95,90 @@ def device_ms(fn, name: str, reps: int) -> float:
     return sum(us) / 1e3 / reps if us else float("nan")
 
 
+def device_busy(fn):
+    """fn() once under torch.profiler (device events): (busy seconds, the
+    union of the events' intervals; {kernel name: summed device seconds})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + (ev.time_range.end - ev.time_range.start) / 1e6
+    busy, end = 0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return busy / 1e6, by_name
+
+
+def table_and_chain(out, dev, reps):
+    """The table build's curve kernels, the table build and msm_chain (the
+    module docstring's last two items) into `out`."""
+    import time
+
+    import torch
+
+    from uzkge_tpu_torch.ff.field import fq
+    from uzkge_tpu_torch.gen_params import load_srs
+    from uzkge_tpu_torch.msm import fixed_base as fb
+
+    n = 16384
+    for W, c in ((32, 8), (256, 1)):
+        x, y = rand(dev, n), rand(dev, n)
+        key = f"n={n} W={W} c={c}"
+        out["fb_bases"][key] = cuda_ms(lambda: fb.fb_bases(x, y, W, c), reps)
+        out["fb_bases_device"][key] = device_ms(lambda: fb.fb_bases(x, y, W, c),
+                                                "fb_bases_kernel", reps)
+    out["chain_build"] = cuda_ms(lambda: fb.build_bases(x, y, 256, 1), reps)
+    K, CH = 32 * n, 16
+    T = tuple(rand(dev, K) for _ in range(5))
+    key = f"K={K} CH={CH}"
+    out["fb_mult_chunk"][key] = cuda_ms(lambda: fb.fb_mult_chunk(*T, CH), reps)
+    out["fb_mult_chunk_device"][key] = device_ms(lambda: fb.fb_mult_chunk(*T, CH),
+                                                 "fb_mult_chunk_kernel", reps)
+    del T
+    kzg = load_srs(n, dev)
+
+    def build():
+        kzg._lagrange_fb = None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        kzg.lagrange_fb_table()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    build()  # warm-up
+    walls = [build() for _ in range(3)]
+    out["table_build_s"] = sum(walls) / len(walls)
+    out["table_build_walls_s"] = walls
+    busy, by_name = device_busy(build)
+    out["table_build_device_busy_s"] = busy
+    out["table_build_device_s"] = {
+        k.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]: v
+        for k, v in by_name.items() if any(t in k for t in ("fb_", "fq_inv_", "fp_mont_mul"))}
+    kzg._lagrange_fb = None
+    torch.cuda.empty_cache()
+    pts = kzg._lagrange_points
+    x = fq.to_mont_limbs([p[0] for p in pts], dev).reshape(n, 8)
+    y = fq.to_mont_limbs([p[1] for p in pts], dev).reshape(n, 8)
+    g = torch.Generator(device=dev).manual_seed(8)
+    sc = torch.randint(-(1 << 31), 1 << 31, (8, n, 8), dtype=torch.int32, device=dev, generator=g)
+    sc[..., 7] &= 0x0FFFFFFF
+    out["msm_chain_P8_ms"] = cuda_ms(lambda: fb.msm_chain(x, y, sc), reps)
+    out["msm_chain_P8_device_busy_ms"] = device_busy(lambda: fb.msm_chain(x, y, sc))[0] * 1e3
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -111,7 +206,8 @@ def main():
         return cuda_ms(fn, args.reps)
 
     out = {"root": os.path.abspath(args.root), "card": card, "ntt_pass": {}, "fb_pair_combine": {},
-           "ntt_pass_device": {}, "fb_pair_combine_device": {}}
+           "ntt_pass_device": {}, "fb_pair_combine_device": {}, "fb_bases": {},
+           "fb_bases_device": {}, "fb_mult_chunk": {}, "fb_mult_chunk_device": {}}
     master = NTTDomain(2048, dev).master
     total = dtotal = 0.0
     for (OUT, S, IN, pre, post, const), count in NTT_SHAPES.items():
@@ -142,6 +238,8 @@ def main():
     out["fb_fold_tail_P8"] = ms(lambda: fb.fold_tail(*pts))
     a = rand(dev, 1 << 21)
     out["fq_batch_inv_2^21"] = ms(lambda: fb.fq_batch_inv(a))
+    del pts, a
+    table_and_chain(out, dev, args.reps)
     print(json.dumps(out))
 
 
