@@ -16,11 +16,17 @@ Phases, any failure exits nonzero:
      (field arithmetic has no rounding: tolerance 0):
        ntt_pass through NTTDomain: fft / ifft at n = 16384 (batch 8) and
        coset fft / ifft at m = 131072, against the plain passes on the CPU;
-       the MSM kernels against the plain Pippenger at n = 2048, P = 3, and at
-       n = 16384, P = 8 against host curve arithmetic on scalars nonzero at
-       64 seeded positions; and at that shape on dense scalars, where each
-       kernel's time is taken beside its plain version's and the outputs of
-       the timed calls are compared;
+       the MSM kernels against the plain Pippenger at n = 2048, P = 3 (and
+       msm_bucket_reduce on a copy of the buckets with empty buckets,
+       all-identity chunks and a point in bucket 0), and at n = 16384, P = 8
+       against host curve arithmetic on scalars nonzero at 64 seeded
+       positions; and at that shape on dense scalars, where each kernel's
+       time is taken beside its plain version's and the outputs of the timed
+       calls are compared; msm_bucket_reduce (whose projective limbs differ
+       from the plain version's: it adds in another order) also at every
+       batch of the variable-base proof, (P, K) = (8, 64), (1, 512), (5,
+       128), (2, 256), each against its plain version as affine window sums,
+       also on a copy with identities, timed beside it;
      the fixed-base table build's four kernels (fp_mont_mul for Fr and Fq,
      fb_bases, fb_mult_chunk, fq_batch_inv) at n = 256, c = 8, bits = 254
      (W = 32, K = 8192, D = 128) on the 52-card Lagrange basis, each against
@@ -49,6 +55,8 @@ Phases, any failure exits nonzero:
      the same prover params through a KZG with fixed_base=False (the
      variable-base Pippenger), from the same rng state: the same sha256,
      both Pippenger kernels launched; both proofs' stage times side by side;
+     that proof profiled too (device busy, idle share, every kernel's device
+     time, launches and time a launch);
   5. the fixed-base path: the proof's table is dropped, and a fresh
      KZG.lagrange_fb_table() over the 16384 Lagrange bases (c = 8: 67,108,864
      rows, 4.29 GB) is timed, with its peak device memory; sampled rows
@@ -79,7 +87,7 @@ Phases, any failure exits nonzero:
      commit through the sharded msm_chain, the batched NTTs through
      sharded_ntt_batch; the same sha256, both scan kernels launched, neither
      the table nor the Pippenger used; its stage times beside the
-     fixed-base proof's;
+     fixed-base proof's; that proof profiled too;
   7. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
      bound worked out from this run's shapes and what bounds it, and the time
      of one PyTorch call computing the same function where there is one:
@@ -90,7 +98,10 @@ Phases, any failure exits nonzero:
      ntt_pass and fb_pair_combine also give their
      per-proof device time in the profiled proof (proof_ms), the sum over
      the proof's launches of their timed shapes (proof_events_ms) and the
-     per-proof bound summed likewise (proof_bound_ms); the card line, and
+     per-proof bound summed likewise (proof_bound_ms); msm_bucket_reduce
+     likewise over its four batches; the Pippenger's kernels give their
+     proof_ms from the variable-base proof's profile, the scan kernels from
+     the group proof's; the card line, and
      last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -386,7 +397,13 @@ def check_msm(dev, rng, rate):
             err_acc = max(err_acc, e)
         else:
             err_red = max(err_red, e)
-    log(f"msm n={n} P={P} K={K}: kernels == plain == host")
+    eb = identity_buckets(kb)
+    if point_err(window_points(M.msm_bucket_reduce(eb)),
+                 window_points(M.msm_bucket_reduce_plain(eb))) != 0:
+        raise AssertionError(f"msm n={n} P={P}: msm_bucket_reduce disagrees with its plain "
+                             "version on buckets with identities")
+    log(f"msm n={n} P={P} K={K}: kernels == plain == host; msm_bucket_reduce == plain with "
+        "empty buckets and all-identity chunks")
 
     # n = 16384, P = 8 on the Lagrange SRS bases, 64 nonzero scalars per row
     n, P = 16384, 8
@@ -422,31 +439,114 @@ def check_msm(dev, rng, rate):
     acc_ms, kb = cuda_ms(lambda: M.msm_bucket_accumulate(bases.x, bases.y, std, K))
     acc_plain_ms, pb = cuda_ms(lambda: M.msm_bucket_accumulate_plain(bases.x, bases.y, std, K),
                                reps=0)
-    red_ms, ks = cuda_ms(lambda: M.msm_bucket_reduce(kb))
-    red_plain_ms, kp = cuda_ms(lambda: M.msm_bucket_reduce_plain(kb), reps=0)
     want = M._window_sums_to_points(M.msm_bucket_reduce_plain(pb).cpu())
-    e_acc = point_err(M._window_sums_to_points(kp.cpu()), want)  # kernel vs plain buckets
-    e_red = point_err(M._window_sums_to_points(ks.cpu()), want)  # both kernels vs plain
-    if e_acc != 0 or e_red != 0 or None in want:
-        raise AssertionError(f"msm n={n} P={P} dense: kernels disagree with the plain versions")
-    log(f"msm n={n} P={P} K={K} dense: kernels == plain")
+    e_acc = point_err(M._window_sums_to_points(M.msm_bucket_reduce_plain(kb).cpu()), want)
+    if e_acc != 0 or None in want:
+        raise AssertionError(f"msm n={n} P={P} dense: the accumulate kernel disagrees with its "
+                             "plain version")
     log(f"msm_bucket_accumulate (n={n}, P={P}, K={K}): kernel {acc_ms:.4f} ms, "
-        f"plain {acc_plain_ms:.4f} ms")
-    log(f"msm_bucket_reduce (P={P}, K={K}): kernel {red_ms:.4f} ms, plain {red_plain_ms:.4f} ms")
+        f"plain {acc_plain_ms:.4f} ms, equal as affine window sums")
     shape = f"n={n} P={P} K={K}"
     buckets = P * K * M.N_WINDOWS * M.N_BUCKETS * 96
     nonzero = int((M._digits(std) != 0).sum())  # one mixed addition per nonzero digit
     acc_bound = bound(2 * n * 32 + P * n * 32 + buckets, nonzero * MADD_PRODUCTS, rate)
-    # per (p, w): the fold of 256 buckets over K chunks, 16 segments of 15 buckets
-    # (two additions each) plus 15 segment heads, and the combine of 47
-    # additions and 4 doublings
-    adds = P * M.N_WINDOWS * (M.N_BUCKETS * (K - 1) + 16 * 30 + 15 + 47)
-    red_bound = bound(buckets + P * M.N_WINDOWS * 96,
-                      adds * PADD_PRODUCTS + P * M.N_WINDOWS * 4 * DBL_PRODUCTS, rate)
+    del pb
+    red = check_reduce_batches(dev, rng, bases, kb, std, rate)
+    e_red = red.pop("max_abs_err")
     return ({"max_abs_err": max(err_acc, e, e_acc), "ms": acc_ms, "plain_ms": acc_plain_ms,
              "shape": shape, **acc_bound},
-            {"max_abs_err": max(err_red, e, e_red), "ms": red_ms, "plain_ms": red_plain_ms,
-             "shape": shape, **red_bound})
+            {"max_abs_err": max(err_red, e, e_red), **red})
+
+
+def reduce_bound(P: int, K: int, rate) -> dict:
+    """msm_bucket_reduce's bound at (P, K): per (p, w) the fold of 256 buckets
+    over K chunks, 16 segments of 15 buckets (two additions each) plus 15
+    segment heads, and the combine of 47 additions and 4 doublings (the
+    running-sum weighted sum's count, whatever order the kernel adds in); the
+    buckets read once, the window sums written once."""
+    from uzkge_tpu_torch.msm import msm as M
+
+    adds = P * M.N_WINDOWS * (M.N_BUCKETS * (K - 1) + 16 * 30 + 15 + 47)
+    return bound(P * K * M.N_WINDOWS * M.N_BUCKETS * 96 + P * M.N_WINDOWS * 96,
+                 adds * PADD_PRODUCTS + P * M.N_WINDOWS * 4 * DBL_PRODUCTS, rate)
+
+
+def window_points(wsums):
+    """(P, 32, 3, 8) window sums -> one affine host point per window."""
+    from uzkge_tpu_torch.msm import msm as M
+
+    return M._window_sums_to_points(wsums.cpu().reshape(-1, 1, 3, 8))
+
+
+def identity_buckets(kb):
+    """A copy of (P, K, 32, 256, 3, 8) buckets with a third of them, one
+    whole chunk (K > 1) and one whole window the identity (0 : 1 : 0), and
+    bucket 0 of every window a point (the reduce must ignore it)."""
+    from uzkge_tpu_torch.ff.field import fq
+
+    P, K = kb.shape[:2]
+    out = kb.clone()
+    g = torch.Generator(device=out.device).manual_seed(9)
+    empty = torch.rand(out.shape[:4], generator=g, device=out.device) < 1 / 3
+    if K > 1:
+        empty[:, K // 2] = True
+    empty[:, :, 3] = True
+    out[empty] = torch.stack([torch.zeros(8, dtype=torch.int32, device=out.device),
+                              fq.const(1, out.device),
+                              torch.zeros(8, dtype=torch.int32, device=out.device)])
+    out[:, :, :, 0] = kb[:, :, :, 1]
+    return out
+
+
+def check_reduce_batches(dev, rng, bases, kb8, std8, rate):
+    """msm_bucket_reduce against msm_bucket_reduce_plain as affine window sums
+    (their projective limbs differ: the kernel adds in another order) at every
+    batch the proof's commits use, (P, K) = (8, 64), (1, 512), (5, 128), (2,
+    256) at n = 16384, each on the accumulate kernel's buckets of dense
+    random scalars (P = 8: those of check_msm), timed beside the plain
+    version (CUDA events, mean of 5; the plain one cold), and on a copy with
+    empty buckets and all-identity chunks and windows.  Returns the P = 8
+    row with the per-proof sums of the times and bounds."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.msm import msm as M
+
+    n = bases.n
+    tot = {"proof_events_ms": 0.0, "proof_plain_ms": 0.0, "proof_bound_ms": 0.0}
+    row = None
+    for P in (8, 1, 5, 2):
+        if P == 8:
+            kb, std = kb8, std8
+        else:
+            sc = torch.stack([fr.to_mont_limbs([rng.randrange(R_MOD) for _ in range(n)], dev)
+                              for _ in range(P)])
+            std = fr.from_mont(sc)
+            kb = M.msm_bucket_accumulate(bases.x, bases.y, std, M.pick_chunks(n, P, dev))
+        K = kb.shape[1]
+        ms, ks = cuda_ms(lambda: M.msm_bucket_reduce(kb))
+        plain_ms, kp = cuda_ms(lambda: M.msm_bucket_reduce_plain(kb), reps=0)
+        want = window_points(kp)
+        if point_err(window_points(ks), want) != 0 or None in want:
+            raise AssertionError(f"msm_bucket_reduce (P={P}, K={K}) disagrees with its plain "
+                                 "version")
+        eb = identity_buckets(kb)
+        if point_err(window_points(M.msm_bucket_reduce(eb)),
+                     window_points(M.msm_bucket_reduce_plain(eb))) != 0:
+            raise AssertionError(f"msm_bucket_reduce (P={P}, K={K}) disagrees with its plain "
+                                 "version on buckets with identities")
+        b = reduce_bound(P, K, rate)
+        log(f"msm_bucket_reduce (P={P}, K={K}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); equal as affine window sums, also "
+            f"with empty buckets and all-identity chunks")
+        tot["proof_events_ms"] += ms
+        tot["proof_plain_ms"] += plain_ms
+        tot["proof_bound_ms"] += b["bound_ms"]
+        if P == 8:
+            row = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "shape": f"n={n} P={P} K={K}",
+                   **b}
+        del kb, ks, kp, eb
+    log("msm_bucket_reduce per proof (P = 8, 1, 5, 2): " + json.dumps(tot))
+    return {**row, **tot}
 
 
 # ---------------------------------------------------------------- fixed base
@@ -791,9 +891,9 @@ def port_kernel_names():
 
 
 def log_port_kernels(events):
-    """Summed device time and count of every kernel of csrc/ among the
-    events, by name, those that never ran included; returns {name: (ms,
-    count)}."""
+    """Summed device time, count and device time per launch of every kernel
+    of csrc/ among the events, by name, those that never ran included;
+    returns {name: (ms, count)}."""
     import re
 
     names = port_kernel_names()
@@ -804,7 +904,9 @@ def log_port_kernels(events):
                 sums[k][0] += hi - lo
                 sums[k][1] += 1
     for k in names:
-        log(f"  port kernel {k:30s} device {sums[k][0] / 1e3:10.4f} ms  x{sums[k][1]}")
+        ms, count = sums[k][0] / 1e3, sums[k][1]
+        per = f"{ms / count:.4f} ms a launch" if count else "not launched"
+        log(f"  port kernel {k:30s} device {ms:10.4f} ms  x{count:<4d} {per}")
     return {k: (us / 1e3, count) for k, (us, count) in sums.items()}
 
 
@@ -819,21 +921,23 @@ def log_device_time(events, top: int):
         log(f"  device {us / 1e3:10.3f} ms  x{count:<6d} {name[:90]}")
 
 
-def profile_prove(seed, pp, kzg, joint, deck, latency):
-    """One more proof under torch.profiler.  The idle share is taken against
-    the profiled proof's wall time (profiler on); busy time over the
-    unprofiled latency is printed beside it.  Returns log_port_kernels'
-    sums, or {} when the profiler recorded no device event."""
+def profile_prove(seed, pp, kzg, joint, deck, latency, name):
+    """One more proof through `kzg` (the route `name`) under torch.profiler.
+    The idle share is taken against the profiled proof's wall time (profiler
+    on); busy time over the unprofiled latency is printed beside it.
+    Returns log_port_kernels' sums, or {} when the profiler recorded no
+    device event."""
     from uzkge_tpu_torch.shuffle import app
 
     rng = random.Random(seed + 1)
     wall, events, busy_s = device_profile(lambda: app.prove_shuffle(rng, joint, deck, pp, kzg))
     if events is None:
-        log("profiled prove52: the profiler recorded no device events (busy time not measured)")
+        log(f"profiled prove52 ({name}): the profiler recorded no device events (busy time not "
+            "measured)")
         return {}
-    log(f"profiled prove52: wall {wall:.3f} s (profiler on), {len(events)} device events, "
-        f"device busy {busy_s:.4f} s, idle share of the profiled wall {1 - busy_s / wall:.4f}; "
-        f"busy / unprofiled latency {busy_s / latency:.4f}")
+    log(f"profiled prove52 ({name}): wall {wall:.3f} s (profiler on), {len(events)} device "
+        f"events, device busy {busy_s:.4f} s, idle share of the profiled wall "
+        f"{1 - busy_s / wall:.4f}; busy / unprofiled latency {busy_s / latency:.4f}")
     log_device_time(events, 15)
     return log_port_kernels(events)
 
@@ -932,7 +1036,7 @@ def main_path(dev, golden):
     if app.verify_shuffle(pp.verifier_params, kzg, deck, bad, proof2):
         raise AssertionError("the verifier accepts a tampered public input")
     log("verifier: proof accepted, tampered deck rejected")
-    profile = profile_prove(seed, pp, kzg, joint, deck, latency)
+    profile = profile_prove(seed, pp, kzg, joint, deck, latency, "fixed-base")
 
     kzg_vb = load_srs(pp.n, dev, fixed_base=False)
     kzg_vb.commit_evals(torch.zeros((pp.n, 8), dtype=torch.int32, device=dev))  # its bases
@@ -944,12 +1048,14 @@ def main_path(dev, golden):
     missing = [k for k in VB_KERNELS if launches_vb[k] <= 0]
     if missing or launches_vb["fb_select"]:
         raise AssertionError(f"the variable-base proof launched no {missing} or used the table")
+    profile_vb = profile_prove(seed, pp, kzg_vb, joint, deck, latency_vb, "variable-base")
     log(f"{'stage (s)':24s} {'fixed-base':>12s} {'variable-base':>14s}")
     for name in ("latency",) + STAGES:
         a, b = (latency, latency_vb) if name == "latency" else (stages[name], stages_vb[name])
         log(f"{name:24s} {a:12.4f} {b:14.4f}")
     ctx = {"pp": pp, "joint": joint, "deck": deck, "state": state, "latency": latency,
-           "stages": stages, "ntt_shapes": shapes.counts, "profile": profile}
+           "seed": seed, "stages": stages, "ntt_shapes": shapes.counts, "profile": profile,
+           "profile_vb": profile_vb}
     return launches, launches_vb, ctx
 
 
@@ -1277,7 +1383,8 @@ def group_proof(dev, group, golden, ctx):
     params through a KZG on `group` (every Lagrange commit through the
     sharded msm_chain, the batched NTTs through sharded_ntt_batch), from the
     rng state of the fixed-base proof; the same sha256, both scan kernels
-    launched, the table and the Pippenger not used.  Returns its launches."""
+    launched, the table and the Pippenger not used; then one more under the
+    profiler.  Returns its launches and the profile's kernel sums."""
     from uzkge_tpu_torch.gen_params import load_srs
     from uzkge_tpu_torch.plonk.proof_io import proof_to_bytes_be
     from uzkge_tpu_torch.shuffle import app
@@ -1296,13 +1403,14 @@ def group_proof(dev, group, golden, ctx):
         a, b = ((ctx["latency"], latency) if name == "latency"
                 else (ctx["stages"].get(name, 0.0), stages.get(name, 0.0)))
         log(f"{name:24s} {a:12.4f} {b:12.4f}")
-    return launches
+    return launches, profile_prove(ctx["seed"], pp, kzg, joint, deck, latency, "group")
 
 
 def sharded_path(dev, golden, ctx, tbl, sc, want):
     """An NCCL process group of world size 1 over a FileStore in a temporary
     directory: check_sharded, then group_proof; the group is destroyed and
-    the directory removed after.  Returns the group proof's launches."""
+    the directory removed after.  Returns the group proof's launches and
+    profile."""
     import shutil
     import tempfile
 
@@ -1373,7 +1481,13 @@ def main():
         proof_bound_ms=qres["fb_pair_combine"]["bound_ms"]
         + sum(b["fb_pair_combine_bound"] for b in batches.values()))
     chain, sc, want = check_chain_full(dev, tbl, rate, errs, query_ms)
-    group_launches = sharded_path(dev, golden, ctx, tbl, sc, want)
+    group_launches, prof_grp = sharded_path(dev, golden, ctx, tbl, sc, want)
+    prof_vb = ctx["profile_vb"]
+    for res, name, prof_route in ((acc, "msm_bucket_accumulate", prof_vb),
+                                  (red, "msm_bucket_reduce", prof_vb),
+                                  (chain["scan_leaf_reduce"], "scan_leaf_reduce", prof_grp),
+                                  (chain["scan_proj_reduce"], "scan_proj_reduce", prof_grp)):
+        res["proof_ms"] = prof_route.get(f"{name}_kernel", (None,))[0]  # device time per proof
     launches.update({k: launches_vb[k] for k in VB_KERNELS})
     launches.update({k: fb_launches[k] for k in SETUP_KERNELS})
     launches.update({k: group_launches[k] for k in ("scan_leaf_reduce", "scan_proj_reduce")})

@@ -130,14 +130,22 @@ def jax_chain():
 # ---------------------------------------------------------- kernel bodies
 
 
-def test_scan_leaf_matches_jax_kernel_body(scan_pallas, jax_chain):
-    """scan_leaf_reduce_plain against _scan_leaf_kernel at P = 2, n = 4, W = 8
-    (K = 32 leaves per MSM, S = 8, J = 4): the chain is seeded canonical
-    values, digits cover [-2, 2], and lane (1, 1)'s eight digits are all
-    zero (its sum is the identity)."""
+_LEAF_CASE = {}
+
+
+def _leaf_case(jfb):
+    """P = 2 MSMs, n = 4, W = 8 (K = 32 leaves each, S = 8, J = 4): a chain of
+    seeded canonical values and digits in [-2, 2] with lanes planted: (0, 0)
+    starts 2, -2, 1, -1; (0, 2) has no zero digit; (1, 1) is all zero (its
+    sum is the identity); (1, 3) has one nonzero digit, at an odd leaf.
+    Returns the inputs and _scan_leaf_kernel's outputs on msm_chain's gather
+    of them (uzkge_tpu/msm/fixed_base.py, msm_chain), worked out once per
+    module (the interpreted body takes seconds)."""
     import jax.numpy as jnp
 
-    jfb = scan_pallas
+    if _LEAF_CASE:
+        return _LEAF_CASE["case"]
+
     P, n, W, S = 2, 4, 8, 8
     K, J = W * n, W * n // S
     rs = np.random.default_rng(5)
@@ -145,8 +153,9 @@ def test_scan_leaf_matches_jax_kernel_body(scan_pallas, jax_chain):
     digits = rs.integers(-2, 3, size=(P, K)).astype(np.int32)
     digits[1, S : 2 * S] = 0
     digits[0, :4] = [2, -2, 1, -1]
+    digits[0, 2 * S : 3 * S] = rs.choice([-2, -1, 1, 2], size=S)
+    digits[1, 3 * S : 4 * S] = [0, 0, 0, 0, 0, -2, 0, 0]
 
-    # msm_chain's gather (uzkge_tpu/msm/fixed_base.py, msm_chain)
     d_t = jnp.asarray(digits)
     base_idx = (2 * jnp.arange(W, dtype=jnp.int32)[:, None] * n
                 + jnp.arange(n, dtype=jnp.int32)[None, :]).reshape(1, W * n)
@@ -156,13 +165,59 @@ def test_scan_leaf_matches_jax_kernel_body(scan_pallas, jax_chain):
     gx = _jax_rows(ax)[:, idx_lay.reshape(-1)].reshape(16, S, P * J)
     gy = _jax_rows(ay)[:, idx_lay.reshape(-1)].reshape(16, S, P * J)
     want = jfb._scan_reduce_tpu(jfb._scan_leaf_kernel, S, (gx, gy), d=d_lay)
-
     assert fb.chain_rows(torch.from_numpy(digits), n).tolist() == np.asarray(idx).tolist()
+    _LEAF_CASE["case"] = (ax, ay, digits, n, S), [_mod_p(_port(w)) for w in want]
+    return _LEAF_CASE["case"]
+
+
+def test_scan_leaf_matches_jax_kernel_body(scan_pallas, jax_chain):
+    """scan_leaf_reduce_plain against _scan_leaf_kernel on _leaf_case()'s
+    planted lanes, limb for limb mod p."""
+    (ax, ay, digits, n, S), want = _leaf_case(scan_pallas)
+    P, K = digits.shape
+    J = K // S
     got = fb.scan_leaf_reduce(ax, ay, torch.from_numpy(digits), n, S)
     for g, w in zip(got, want):
-        assert g.shape == (P * J, 8) and _mod_p(g) == _mod_p(_port(w))
+        assert g.shape == (P * J, 8) and _mod_p(g) == w
     X, Y, Z = (_mod_p(t) for t in got)
     assert (X[J + 1], Y[J + 1], Z[J + 1]) == (0, tf.fq.R % Q_MOD, 0)  # the identity
+
+
+_LEAF_HARNESS = r"""
+#include "scan_reduce.cuh"
+extern "C" void scan_leaf_n(const uint32_t *ax, const uint32_t *ay, const int32_t *digits,
+                            uint32_t *ox, uint32_t *oy, uint32_t *oz, int lanes, int K, int lg_n,
+                            int S) {
+  for (int t = 0; t < lanes; t++) scan_leaf_lane(ax, ay, digits, ox, oy, oz, t, K, lg_n, S); }
+"""
+
+
+def test_scan_leaf_lane_matches_jax_kernel_body(scan_pallas, tmp_path):
+    """scan_reduce.cuh's leaf lane (the kernel's walk over nonzero leaves),
+    compiled by g++, against _scan_leaf_kernel on _leaf_case()'s planted
+    lanes, limb for limb."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ on this machine")
+    (src, so) = (tmp_path / "leaf.cpp", tmp_path / "leaf.so")
+    src.write_text(_LEAF_HARNESS)
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", kernels.CSRC, "-o",
+                    str(so), str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.scan_leaf_n.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    (ax, ay, digits, n, S), want = _leaf_case(scan_pallas)
+    P, K = digits.shape
+    lanes = P * K // S
+    digits = np.ascontiguousarray(digits)
+    out = [torch.zeros((lanes, 8), dtype=torch.int32) for _ in range(3)]
+    lib.scan_leaf_n(ax.data_ptr(), ay.data_ptr(), digits.ctypes.data,
+                    *(o.data_ptr() for o in out), lanes, K, n.bit_length() - 1, S)
+    for o, w in zip(out, want):
+        assert _mod_p(o) == w
 
 
 def test_scan_proj_matches_jax_kernel_body(scan_pallas):
@@ -267,16 +322,18 @@ def cuda_device():
 
 
 @pytest.mark.on_cuda
-def test_chain_kernels_match_plain(cuda_device):
+@pytest.mark.parametrize("P", [3, 1], ids=["P3", "P1"])
+def test_chain_kernels_match_plain(cuda_device, P):
     """scan_leaf_reduce (S = 32 and 1) and scan_proj_reduce (S = 8 and 2) on
-    the card against their plain versions on the same inputs, then msm_chain
-    at n = 32 against the CPU's."""
-    P, n, W = 3, 16, 128
+    the card against their plain versions on the same inputs (P = 3 with an
+    all-zero row, and P = 1), then msm_chain at n = 32 against the CPU's."""
+    n, W = 16, 128
     K = W * n
     rs = np.random.default_rng(8)
     ax, ay = (_rows(_fq_vals(rs, 2 * K), (2 * K,)).to(cuda_device) for _ in range(2))
     d = torch.from_numpy(rs.integers(-2, 3, size=(P, K)).astype(np.int32)).to(cuda_device)
-    d[1] = 0
+    if P > 1:
+        d[1] = 0
     before = dict(kernels.LAUNCHES)
     for S in (32, 1):
         for g, w in zip(fb.scan_leaf_reduce(ax, ay, d, n, S),
@@ -292,5 +349,6 @@ def test_chain_kernels_match_plain(cuda_device):
 
     pts, rows = _case()
     x, y = (tf.fq.to_mont_limbs([p[j] for p in pts], cuda_device) for j in (0, 1))
+    rows = rows if P > 1 else rows[-1:]
     sc = tf.fr.to_mont_limbs([s for row in rows for s in row], cuda_device).reshape(-1, N_PTS, 8)
     assert fb._extract_host(*fb.msm_chain(x, y, sc)) == [host_msm(pts, row) for row in rows]

@@ -217,7 +217,10 @@ void fb_fold_n(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t
 }
 void scan_leaf_n(const uint32_t *ax, const uint32_t *ay, const int32_t *digits, uint32_t *ox,
                  uint32_t *oy, uint32_t *oz, long long P, long long K, long long n, int S) {
-  for (long long t = 0; t < P * (K / S); t++) scan_leaf_lane(ax, ay, digits, ox, oy, oz, t, K, n, S); }
+  int lg_n = 0;
+  while ((1LL << lg_n) < n) lg_n++;
+  for (long long t = 0; t < P * (K / S); t++)
+    scan_leaf_lane(ax, ay, digits, ox, oy, oz, (int)t, (int)K, lg_n, S); }
 void scan_proj_n(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX, uint32_t *oY,
                  uint32_t *oZ, long long lanes, int S) {
   for (long long t = 0; t < lanes; t++) scan_proj_lane(X, Y, Z, oX, oY, oZ, t, S); }

@@ -4,7 +4,8 @@
     uzkge_tpu/msm/msm.py::msm on the same device-array batch at n = 1024,
     P = 3 (above HOST_MSM_MAX), with zero scalars and repeated bases;
   * the plain accumulate and reduce versions, each fed the other's layout;
-  * on a card (marker on_cuda), the two kernels against their plain versions.
+  * on a card (marker on_cuda), the two kernels against their plain versions
+    at n = 2048, P = 3 and at n = 16384, P = 1.
 Results are compared as affine points.  JAX is imported inside the test that
 uses it, so that the on_cuda tests also run where JAX is absent
 (`pytest --noconftest -m on_cuda`).
@@ -99,8 +100,11 @@ def cuda_device():
 
 
 @pytest.mark.on_cuda
-def test_msm_kernels_match_plain(cuda_device):
-    n, P = 2048, 3
+@pytest.mark.parametrize("n,P", [(2048, 3), (16384, 1)], ids=["n2048P3", "n16384P1"])
+def test_msm_kernels_match_plain(cuda_device, n, P):
+    """Both kernels against the plain versions and the host Pippenger, at
+    the K that pick_chunks gives: 128 at n = 2048, P = 3 (2 slices a bucket
+    in the reduce); 512 at n = 16384, P = 1, the proof's r2_commit (8)."""
     points, rows = _inputs(n, P, 13)
     bases = tm.MSMBases(points, cuda_device)
     sc = torch.stack([tf.fr.to_mont_limbs(r, cuda_device) for r in rows]).to(cuda_device)

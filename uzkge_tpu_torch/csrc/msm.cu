@@ -11,7 +11,7 @@
 // walks them in lockstep with a 512-step lax.scan of gather / mixed add /
 // scatter over every (batch, window, chunk) lane (msm.py:155-195), then folds
 // the chunks with a tree and runs a 255-step weighted-sum scan
-// (msm.py:197-232).  On the card each lane becomes a thread.
+// (msm.py:197-232).
 //
 // msm_bucket_accumulate: one thread owns one (p, k, w) lane and its 256
 //   buckets in device memory, laid out (P, K, 32, 256, 3, 8).  It sets them to
@@ -22,55 +22,28 @@
 //   Fq multiplications (11 per mixed addition); the wrapper picks K so that
 //   P*32*K lanes fill the card while the fold below stays no larger than the
 //   walk.
-// msm_bucket_reduce: one block per (p, w), 256 threads.  Thread b folds
-//   bucket b over the K chunks; then 16 threads each reduce a segment of 16
-//   buckets to tot_s = sum_u u*B[16s+u] and agg_s = sum_u B[16s+u], and
-//   thread 0 forms sum_b b*B_b = sum_s tot_s + 16 * sum_s s*agg_s with two
-//   short running sums and four doublings.  Bucket 0 carries weight 0 and is
-//   never read.  Output (P, 32, 3, 8) window sums.
+// msm_bucket_reduce replaces the TPU's chunk fold tree and weighted-sum scan:
+//   the fold of each (p, w, bucket) over the K chunks, then sum_b b*B_b per
+//   (p, w), into (P, 32, 3, 8) window sums.  Bound: operations, P*K*8192
+//   projective additions of 12 products (4.2-5.2 M a call, as the prover
+//   keeps P*K at 512 or 640) against 96 B read per addition.  What costs
+//   time on this card is depth: a thread's additions are a dependent chain,
+//   and an SM issues at its ceiling only with a few warps busy on each
+//   scheduler.  A block per (p, w) with a thread per bucket, as before,
+//   folded K - 1 chunks in a row and had P*32 blocks: 32 at P = 1 on 132
+//   SMs, 511 additions deep, then a weighted sum 80 additions deep on 16
+//   threads and then one.  Here (msm.cuh) each window is T blocks of 256
+//   threads, T = msm_reduce_slices(K), each thread folding a slice of about
+//   K / T chunks of one bucket, so that every batch runs P*32*T blocks of
+//   equal work; the slices meet in a tree in shared memory, and the weighted
+//   sum is taken bit by bit by trees across the block, the window's last
+//   block (an atomic count per window) adding the T blocks' shares, about 20
+//   additions deep after the fold.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "msm.cuh"
 
 namespace {
-
-constexpr int NWIN = 32;
-constexpr int NBUCKET = 256;
-constexpr int PT_WORDS = 24;  // 3 coordinates x 8 limbs
-
-__device__ __forceinline__ void load_proj(G1Proj &q, const uint32_t *p) {
-  const uint4 *s = reinterpret_cast<const uint4 *>(p);
-  uint4 v[6];
-#pragma unroll
-  for (int i = 0; i < 6; i++) v[i] = s[i];
-  const uint32_t *w = reinterpret_cast<const uint32_t *>(v);
-#pragma unroll
-  for (int j = 0; j < 8; j++) {
-    q.x[j] = w[j];
-    q.y[j] = w[8 + j];
-    q.z[j] = w[16 + j];
-  }
-}
-
-__device__ __forceinline__ void store_proj(uint32_t *p, const G1Proj &q) {
-  uint32_t w[PT_WORDS];
-#pragma unroll
-  for (int j = 0; j < 8; j++) {
-    w[j] = q.x[j];
-    w[8 + j] = q.y[j];
-    w[16 + j] = q.z[j];
-  }
-  uint4 *d = reinterpret_cast<uint4 *>(p);
-#pragma unroll
-  for (int i = 0; i < 6; i++) d[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
-}
-
-__device__ __forceinline__ void load8(uint32_t v[8], const uint32_t *p) {
-  const uint4 *q = reinterpret_cast<const uint4 *>(p);
-  uint4 a = q[0], b = q[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
 
 __global__ void msm_bucket_accumulate_kernel(const uint32_t *__restrict__ bx,
                                              const uint32_t *__restrict__ by,
@@ -78,16 +51,16 @@ __global__ void msm_bucket_accumulate_kernel(const uint32_t *__restrict__ bx,
                                              uint32_t *__restrict__ buckets, int P, int n,
                                              int K, int Cn) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (long long)P * K * NWIN) return;
-  const int w = (int)(lane % NWIN);
-  const long long pk = lane / NWIN;
+  if (lane >= (long long)P * K * MSM_WINDOWS) return;
+  const int w = (int)(lane % MSM_WINDOWS);
+  const long long pk = lane / MSM_WINDOWS;
   const int k = (int)(pk % K);
   const int p = (int)(pk / K);
-  uint32_t *B = buckets + lane * NBUCKET * PT_WORDS;
+  uint32_t *B = buckets + lane * MSM_BUCKETS * MSM_PT;
 
   G1Proj acc;
   g1_set_identity(acc);
-  for (int b = 0; b < NBUCKET; b++) store_proj(B + b * PT_WORDS, acc);
+  for (int b = 0; b < MSM_BUCKETS; b++) msm_st(B + b * MSM_PT, acc);
 
   const int i0 = k * Cn;
   const int i1 = min(n, i0 + Cn);
@@ -96,76 +69,51 @@ __global__ void msm_bucket_accumulate_kernel(const uint32_t *__restrict__ bx,
     const int d = digits[(size_t)i * 32];
     if (d == 0) continue;
     uint32_t x[8], y[8];
-    load8(x, bx + (size_t)i * 8);
-    load8(y, by + (size_t)i * 8);
-    uint32_t *slot = B + d * PT_WORDS;
-    load_proj(acc, slot);
+    ld_fp(x, bx + (size_t)i * 8);
+    ld_fp(y, by + (size_t)i * 8);
+    uint32_t *slot = B + d * MSM_PT;
+    msm_ld(acc, slot);
     g1_madd(acc, acc, x, y);
-    store_proj(slot, acc);
+    msm_st(slot, acc);
   }
 }
 
-constexpr int SEG = 16;  // buckets per segment in the weighted sum
+struct ReduceBlock {
+  int B;
+  G1Proj r;
+  template <class F> ZK_HD void each(F f) {
+#ifdef __CUDA_ARCH__
+    f((int)threadIdx.x, r);
+#endif
+  }
+  ZK_HD void sync() {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+};
 
-__global__ void __launch_bounds__(NBUCKET)
+// Block pw * T + g: group g of window pw (msm_reduce_group); the window's
+// last group to finish, by the count in done[pw], adds up its sums.
+__global__ void __launch_bounds__(MSM_BUCKETS)
 msm_bucket_reduce_kernel(const uint32_t *__restrict__ buckets, uint32_t *__restrict__ out,
-                         int K) {
-  __shared__ uint4 folded4[NBUCKET * PT_WORDS / 4];
-  __shared__ uint4 segs4[2 * SEG * PT_WORDS / 4];
-  uint32_t *folded = reinterpret_cast<uint32_t *>(folded4);
-  uint32_t *segs = reinterpret_cast<uint32_t *>(segs4);
-  const int pw = blockIdx.x;  // p * 32 + w
-  const int p = pw / NWIN, w = pw % NWIN;
-  const int b = threadIdx.x;
-
-  // 1. fold bucket b over the K chunks
-  G1Proj acc, q;
-  load_proj(acc, buckets + ((((size_t)p * K) * NWIN + w) * NBUCKET + b) * PT_WORDS);
-  for (int k = 1; k < K; k++) {
-    load_proj(q, buckets + ((((size_t)p * K + k) * NWIN + w) * NBUCKET + b) * PT_WORDS);
-    g1_padd(acc, acc, q);
-  }
-  store_proj(folded + b * PT_WORDS, acc);
+                         uint32_t *__restrict__ part, int *__restrict__ done, int K, int T) {
+  __shared__ uint4 sF4[MSM_BUCKETS * MSM_PT / 4];      // the group's folded buckets
+  __shared__ uint4 sT4[MSM_BUCKETS / 2 * MSM_PT / 4];  // tree scratch
+  __shared__ int last;
+  uint32_t *sF = reinterpret_cast<uint32_t *>(sF4);
+  uint32_t *sT = reinterpret_cast<uint32_t *>(sT4);
+  const int pw = (int)blockIdx.x / T, g = (int)blockIdx.x % T;
+  ReduceBlock blk;
+  blk.B = MSM_BUCKETS;
+  msm_reduce_group(blk, buckets, sF, sT, part, pw, g, T, K);
+  __threadfence();  // this group's sums reach L2 before the count says so
   __syncthreads();
-
-  // 2. per segment s: tot_s = sum_{u>=1} u*B[16s+u], agg_s = sum_u B[16s+u]
-  if (b < SEG) {
-    G1Proj run, tot;
-    g1_set_identity(run);
-    g1_set_identity(tot);
-    for (int u = SEG - 1; u >= 1; u--) {
-      load_proj(q, folded + (b * SEG + u) * PT_WORDS);
-      g1_padd(run, run, q);
-      g1_padd(tot, tot, run);
-    }
-    if (b > 0) {  // bucket 0 has weight 0 and is never read
-      load_proj(q, folded + (b * SEG) * PT_WORDS);
-      g1_padd(run, run, q);
-    }
-    store_proj(segs + (2 * b) * PT_WORDS, tot);
-    store_proj(segs + (2 * b + 1) * PT_WORDS, run);
-  }
+  if (threadIdx.x == 0) last = atomicAdd(done + pw, 1) == T - 1;
   __syncthreads();
-
-  // 3. sum_s tot_s + 16 * sum_{s>=1} s*agg_s
-  if (b == 0) {
-    G1Proj sum, run, tot;
-    g1_set_identity(sum);
-    g1_set_identity(run);
-    g1_set_identity(tot);
-    for (int s = SEG - 1; s >= 1; s--) {
-      load_proj(q, segs + (2 * s + 1) * PT_WORDS);
-      g1_padd(run, run, q);
-      g1_padd(tot, tot, run);
-    }
-    for (int i = 0; i < 4; i++) g1_padd(tot, tot, tot);  // * 16
-    for (int s = 0; s < SEG; s++) {
-      load_proj(q, segs + (2 * s) * PT_WORDS);
-      g1_padd(sum, sum, q);
-    }
-    g1_padd(sum, sum, tot);
-    store_proj(out + (size_t)pw * PT_WORDS, sum);
-  }
+  if (!last) return;
+  __threadfence();
+  msm_window_sum(blk, part, sT, out, pw, T);
 }
 
 }  // namespace
@@ -174,7 +122,7 @@ extern "C" int msm_bucket_accumulate_launch(const void *bx, const void *by, cons
                                             void *buckets, int P, int n, int K, void *stream) {
   if (P < 1 || n < 1 || K < 1 || K > n) return (int)cudaErrorInvalidValue;
   const int Cn = (n + K - 1) / K;
-  const long long lanes = (long long)P * K * NWIN;
+  const long long lanes = (long long)P * K * MSM_WINDOWS;
   const int threads = 128;
   const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
   msm_bucket_accumulate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -183,10 +131,17 @@ extern "C" int msm_bucket_accumulate_launch(const void *bx, const void *by, cons
   return (int)cudaGetLastError();
 }
 
-extern "C" int msm_bucket_reduce_launch(const void *buckets, void *out, int P, int K,
-                                        void *stream) {
+// The points of scratch (`part`) the reduce needs a window at K chunks.
+extern "C" int msm_bucket_reduce_parts(int K) { return msm_reduce_slices(K) * MSM_PARTS; }
+
+// part: P * 32 * msm_bucket_reduce_parts(K) points of scratch; done: P * 32
+// ints, zero.
+extern "C" int msm_bucket_reduce_launch(const void *buckets, void *out, void *part, void *done,
+                                        int P, int K, void *stream) {
   if (P < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  msm_bucket_reduce_kernel<<<(unsigned)(P * NWIN), NBUCKET, 0, (cudaStream_t)stream>>>(
-      (const uint32_t *)buckets, (uint32_t *)out, K);
+  const int T = msm_reduce_slices(K);
+  msm_bucket_reduce_kernel<<<(unsigned)(P * MSM_WINDOWS * T), MSM_BUCKETS, 0,
+                             (cudaStream_t)stream>>>(
+      (const uint32_t *)buckets, (uint32_t *)out, (uint32_t *)part, (int *)done, K, T);
   return (int)cudaGetLastError();
 }

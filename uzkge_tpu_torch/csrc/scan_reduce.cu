@@ -8,9 +8,20 @@
 //   folds (L, S, G) blocks of them.  Here one thread per (MSM p, lane j) reads
 //   its S digits and, for each nonzero one, the one 64 B chain row it names,
 //   so the gathered copy is never written.  Bound: operations (a mixed
-//   addition, 11 products, per nonzero leaf against ~68 B read); the rows are
-//   scattered, two 32 B sectors each.  Small blocks (128 threads) spread the
-//   lanes over every SM.
+//   addition, 11 products, per nonzero leaf against ~68 B read).  What holds
+//   it back on this card is latency: a lane's additions are a dependent
+//   chain, and the warps resident on an SM (set by registers) are too few to
+//   issue at the product's ceiling.  Two things follow.  A warp issues an
+//   addition whenever one of its lanes has a leaf to add, so a walk over all
+//   S leaves spent the slots of the zero ones (a quarter of signed base-4
+//   digits) on every warp with one nonzero lane; the lane instead walks its
+//   nonzero leaves by a mask of its digits (scan_leaf_lane), and a warp runs
+//   as many additions as its busiest lane (on an H100 the walk over all
+//   leaves, in the same block, took 21 % longer: tune_reduce.py).  And the
+//   block is 512 threads at 128 registers a thread, 16 warps an SM, though
+//   the lane then spills about 150 bytes: 256 threads (185 registers, 8
+//   warps) and 384 took 24 % and 7 % longer.  Rows are indexed with 32 bits
+//   by a shift and a mask (n a power of two).
 // scan_proj_reduce replaces _scan_proj_kernel (:215): one thread per output
 //   lane sums S consecutive projective points.  Bound: operations (12 products
 //   per addition against 96 B per point).
@@ -20,13 +31,15 @@
 
 namespace {
 
-__global__ void __launch_bounds__(128)
+constexpr int LEAF_THREADS = 512;
+
+__global__ void __launch_bounds__(LEAF_THREADS)
 scan_leaf_reduce_kernel(const uint32_t *__restrict__ ax, const uint32_t *__restrict__ ay,
                         const int32_t *__restrict__ digits, uint32_t *__restrict__ ox,
-                        uint32_t *__restrict__ oy, uint32_t *__restrict__ oz, long long lanes,
-                        long long K, long long n, int S) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // t = p * J + j
-  if (t < lanes) scan_leaf_lane(ax, ay, digits, ox, oy, oz, t, K, n, S);
+                        uint32_t *__restrict__ oy, uint32_t *__restrict__ oz, int lanes, int K,
+                        int lg_n, int S) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;  // t = p * J + j
+  if (t < (unsigned)lanes) scan_leaf_lane(ax, ay, digits, ox, oy, oz, (int)t, K, lg_n, S);
 }
 
 __global__ void __launch_bounds__(128)
@@ -46,15 +59,22 @@ bool pow2(long long v) { return v >= 1 && (v & (v - 1)) == 0; }
 
 }  // namespace
 
-// P MSMs of K = W * n leaves each over a chain of 2W * n rows; S divides K.
+// P MSMs of K = W * n leaves each over a chain of 2W * n rows; n and S powers
+// of two dividing K, S <= 32 (a lane's digit mask); K and the P * K / S lanes
+// below 2^31 (32-bit leaves, rows and lanes).
 extern "C" int scan_leaf_reduce_launch(const void *ax, const void *ay, const void *digits,
                                        void *ox, void *oy, void *oz, long long P, long long K,
                                        long long n, int S, void *stream) {
-  if (P < 1 || n < 1 || K < n || K % n || !pow2(S) || K % S) return (int)cudaErrorInvalidValue;
+  if (P < 1 || !pow2(n) || K < n || K % n || !pow2(S) || S > 32 || K % S ||
+      K >= (1LL << 31) || P * (K / S) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  int lg_n = 0;
+  while ((1LL << lg_n) < n) lg_n++;
   const long long lanes = P * (K / S);
-  scan_leaf_reduce_kernel<<<blocks_for(lanes, 128), 128, 0, (cudaStream_t)stream>>>(
+  scan_leaf_reduce_kernel<<<blocks_for(lanes, LEAF_THREADS), LEAF_THREADS, 0,
+                            (cudaStream_t)stream>>>(
       (const uint32_t *)ax, (const uint32_t *)ay, (const int32_t *)digits, (uint32_t *)ox,
-      (uint32_t *)oy, (uint32_t *)oz, lanes, K, n, S);
+      (uint32_t *)oy, (uint32_t *)oz, (int)lanes, (int)K, lg_n, S);
   return (int)cudaGetLastError();
 }
 

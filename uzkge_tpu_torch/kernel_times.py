@@ -1,9 +1,10 @@
 """Times ntt_pass and fb_pair_combine at the shapes of the 52-card proof on
 one CUDA card, with fb_fold and fq_batch_inv at a P = 8 query's shapes
-beside them, and the table build's curve kernels, the table build and
-msm_chain, and prints one JSON line.
+beside them, the table build's curve kernels, the table build and
+msm_chain, msm_bucket_reduce and scan_leaf_reduce at the proof's batches,
+and prints one JSON line.
 
-    python3 uzkge_tpu_torch/kernel_times.py [--root DIR] [--reps N]
+    python3 uzkge_tpu_torch/kernel_times.py [--root DIR] [--reps N] [--only GROUPS]
 
 --root imports the `uzkge_tpu_torch` package under DIR instead of this one,
 so that two checkouts (say a parent commit unpacked into a git-ignored
@@ -25,7 +26,15 @@ card; each builds its own kernels.  The shapes:
     torch.profiler, the device's busy seconds (the union of its events'
     intervals) and each kernel's device seconds; msm_chain at P = 8 (n =
     16384, seeded random scalars, the 52-card Lagrange bases), events and
-    the device's busy time in one profiled call.
+    the device's busy time in one profiled call;
+  * msm_bucket_reduce at the variable-base proof's four batches (P = 8, 1,
+    5, 2 at n = 16384, K from pick_chunks: 64, 512, 128, 256), summed per
+    proof, on random canonical buckets; scan_leaf_reduce at P = 8, 5, 2, 1
+    (n = 16384, K = 2^21 leaves, S = 32) on a random chain and the signed
+    base-4 digits of seeded random scalars (a quarter of them zero, as in
+    msm_chain), summed over P = 8, 1, 5, 2 as the group proof calls it.
+--only takes a comma list of the groups ntt, combine, query, table, reduce,
+leaf (default: all).
 Times are CUDA-event means over --reps launches after a warm-up (for a small
 launch they include the host's time between launches), and beside them the
 kernels' device time from torch.profiler (keys *_device); inputs are
@@ -179,11 +188,62 @@ def table_and_chain(out, dev, reps):
     out["msm_chain_P8_device_busy_ms"] = device_busy(lambda: fb.msm_chain(x, y, sc))[0] * 1e3
 
 
+def reduce_and_leaf(out, dev, reps, groups):
+    """msm_bucket_reduce and scan_leaf_reduce (the module docstring's last
+    item) into `out`, the groups among ("reduce", "leaf") in `groups`."""
+    import torch
+
+    from uzkge_tpu_torch.msm import fixed_base as fb
+    from uzkge_tpu_torch.msm import msm as M
+
+    n = 16384
+    if "reduce" in groups:
+        out["msm_bucket_reduce"], out["msm_bucket_reduce_device"] = {}, {}
+        total = dtotal = 0.0
+        for P in QUERY_BATCHES:
+            K = M.pick_chunks(n, P, dev)
+            buckets = rand(dev, P, K, M.N_WINDOWS, M.N_BUCKETS, 3)
+            key = f"P={P} K={K}"
+            t = cuda_ms(lambda: M.msm_bucket_reduce(buckets), reps)
+            d = device_ms(lambda: M.msm_bucket_reduce(buckets), "msm_bucket_reduce_kernel", reps)
+            out["msm_bucket_reduce"][key], out["msm_bucket_reduce_device"][key] = t, d
+            total += t
+            dtotal += d
+            del buckets
+        out["msm_bucket_reduce_per_proof"] = total
+        out["msm_bucket_reduce_device_per_proof"] = dtotal
+    if "leaf" in groups:
+        out["scan_leaf_reduce"], out["scan_leaf_reduce_device"] = {}, {}
+        W = 128  # msm_chain: c = 2, bits = 256
+        K = W * n
+        S = fb.pick_s(K)
+        ax, ay = rand(dev, 2 * K), rand(dev, 2 * K)
+        g = torch.Generator(device=dev).manual_seed(7)
+        total = dtotal = 0.0
+        for P in (8, 5, 2, 1):
+            sc = torch.randint(-(1 << 31), 1 << 31, (P, n, 8), dtype=torch.int32, device=dev,
+                               generator=g)
+            sc[..., 7] &= 0x0FFFFFFF
+            d = fb.scalars_to_digits(sc, 2, 256).transpose(1, 2).reshape(P, K).contiguous()
+            key = f"P={P} K={K} S={S}"
+            t = cuda_ms(lambda: fb.scan_leaf_reduce(ax, ay, d, n, S), reps)
+            dd = device_ms(lambda: fb.scan_leaf_reduce(ax, ay, d, n, S), "scan_leaf_reduce_kernel",
+                           reps)
+            out["scan_leaf_reduce"][key], out["scan_leaf_reduce_device"][key] = t, dd
+            out.setdefault("scan_leaf_zero_share", {})[key] = float((d == 0).float().mean())
+            total += t
+            dtotal += dd
+        out["scan_leaf_reduce_per_proof"] = total
+        out["scan_leaf_reduce_device_per_proof"] = dtotal
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="ntt,combine,query,table,reduce,leaf")
     args = ap.parse_args()
+    groups = set(args.only.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -210,7 +270,7 @@ def main():
            "fb_bases_device": {}, "fb_mult_chunk": {}, "fb_mult_chunk_device": {}}
     master = NTTDomain(2048, dev).master
     total = dtotal = 0.0
-    for (OUT, S, IN, pre, post, const), count in NTT_SHAPES.items():
+    for (OUT, S, IN, pre, post, const), count in NTT_SHAPES.items() if "ntt" in groups else ():
         x = rand(dev, OUT, S, IN)
         tw = stage_twiddles_strided(master, 2048, S, 2048 // S, False)[0]
         lads = (rand(dev, S, IN) if pre else None, rand(dev, S, IN) if post else None,
@@ -221,9 +281,10 @@ def main():
         out["ntt_pass"][key], out["ntt_pass_device"][key] = t, d
         total += count * t
         dtotal += count * d
-    out["ntt_pass_per_proof"], out["ntt_pass_device_per_proof"] = total, dtotal
+    if "ntt" in groups:
+        out["ntt_pass_per_proof"], out["ntt_pass_device_per_proof"] = total, dtotal
     total = dtotal = 0.0
-    for P in QUERY_BATCHES:
+    for P in QUERY_BATCHES if "combine" in groups else ():
         for H in LEVELS:
             x, y, dinv = rand(dev, P, 2 * H), rand(dev, P, 2 * H), rand(dev, P, H)
             flags = torch.randint(0, 8, (P, H), dtype=torch.int32, device=dev)
@@ -233,13 +294,17 @@ def main():
             out["fb_pair_combine"][f"P={P} H={H}"], out["fb_pair_combine_device"][f"P={P} H={H}"] = t, d
             total += t
             dtotal += d
-    out["fb_pair_combine_per_proof"], out["fb_pair_combine_device_per_proof"] = total, dtotal
-    pts = tuple(rand(dev, 8, 65536) for _ in range(3))
-    out["fb_fold_tail_P8"] = ms(lambda: fb.fold_tail(*pts))
-    a = rand(dev, 1 << 21)
-    out["fq_batch_inv_2^21"] = ms(lambda: fb.fq_batch_inv(a))
-    del pts, a
-    table_and_chain(out, dev, args.reps)
+    if "combine" in groups:
+        out["fb_pair_combine_per_proof"], out["fb_pair_combine_device_per_proof"] = total, dtotal
+    if "query" in groups:
+        pts = tuple(rand(dev, 8, 65536) for _ in range(3))
+        out["fb_fold_tail_P8"] = ms(lambda: fb.fold_tail(*pts))
+        a = rand(dev, 1 << 21)
+        out["fq_batch_inv_2^21"] = ms(lambda: fb.fq_batch_inv(a))
+        del pts, a
+    if "table" in groups:
+        table_and_chain(out, dev, args.reps)
+    reduce_and_leaf(out, dev, args.reps, groups)
     print(json.dumps(out))
 
 

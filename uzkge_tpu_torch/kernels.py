@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("ntt.cu", "msm.cu", "mont_mul.cu", "fixed_base.cu", "fixed_base_query.cu",
            "scan_reduce.cu")
 HEADERS = ("field.cuh", "fixed_base.cuh", "fixed_base_query.cuh", "scan_reduce.cuh",
-           "ntt.cuh", "launch.cuh")
+           "ntt.cuh", "msm.cuh", "launch.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 # launch counts per kernel: plain integers, reset by reset_launches()
@@ -49,8 +49,10 @@ _SIGNATURES = {
     "ntt_pass_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # bx, by, std, buckets, P, n, K, stream
     "msm_bucket_accumulate_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # buckets, out, P, K, stream
-    "msm_bucket_reduce_launch": [_P, _P, _I, _I, _P],
+    # buckets, out, part, done, P, K, stream
+    "msm_bucket_reduce_launch": [_P, _P, _P, _P, _I, _I, _P],
+    # K (not a launch: the reduce's scratch points a window)
+    "msm_bucket_reduce_parts": [_I],
     # a, b, out, N, field (0 = Fr, 1 = Fq), stream
     "fp_mont_mul_launch": [_P, _P, _P, _L, _I, _P],
     # a, b, out, N, iters, field, stream

@@ -471,9 +471,15 @@ def scan_leaf_reduce(ax, ay, digits, n: int, S: int):
     kernels.check(digits, "digits", (P, K), dev)
     kernels.check(ax, "ax", (2 * K, 8), dev)
     kernels.check(ay, "ay", (2 * K, 8), dev)
-    if P < 1 or n < 1 or K < n or K % n:
-        raise ValueError(f"scan_leaf_reduce: P = {P}, K = {K}, n = {n}: want n dividing K")
+    if P < 1 or n < 1 or n & (n - 1) or K < n or K % n:
+        raise ValueError(f"scan_leaf_reduce: P = {P}, K = {K}, n = {n}: want n a power of two "
+                         "dividing K")
     _scan_width(S, K, "scan_leaf_reduce")
+    if S > 32:
+        raise ValueError(f"scan_leaf_reduce: S = {S} above 32 (a lane's mask of its digits)")
+    if K >= 1 << 31 or P * (K // S) >= 1 << 31:
+        raise ValueError(f"scan_leaf_reduce: K = {K}, P * K / S = {P * (K // S)}: the kernel "
+                         "indexes leaves, chain rows and lanes with 32 bits (each below 2^31)")
     if not kernels.use_kernel(dev, "scan_leaf_reduce"):
         return scan_leaf_reduce_plain(ax, ay, digits, n, S)
     out = tuple(torch.empty((P * (K // S), 8), dtype=torch.int32, device=dev) for _ in range(3))

@@ -10,7 +10,9 @@ The device half of `_msm_device` is two hand-written CUDA kernels
   * msm_bucket_accumulate: per (batch p, chunk k, window w) lane, the
     buckets of chunk k's points (the TPU's 512-step lax.scan);
   * msm_bucket_reduce: the chunk fold and the weighted bucket sum
-    sum_b b*B_b per (p, w) (the TPU's fold tree and 255-step scan).
+    sum_b b*B_b per (p, w) (the TPU's fold tree and 255-step scan), each
+    window over several blocks whose threads fold slices of the chunks
+    (csrc/msm.cuh).
 
 The 32 window sums of each MSM are combined on the host
 (`_window_sums_to_points`), as in the JAX package.  Results are affine host
@@ -168,10 +170,12 @@ def _running_sums(pts, lo: int):
 
 def msm_bucket_reduce_plain(buckets):
     """Torch-op version of the reduce kernel: (P, K, 32, 256, 3, 8) buckets
-    -> (P, 32, 3, 8) window sums sum_b b*B_b, with the kernel's scheme: a
-    tree fold over K, then per 16-bucket segment s the running sums
-    tot_s = sum_{u>=1} u*B[16s+u] and agg_s = sum_u B[16s+u], and
-    sum_s tot_s + 16 * sum_{s>=1} s*agg_s.  Bucket 0 is never read."""
+    -> (P, 32, 3, 8) window sums sum_b b*B_b: a tree fold over K, then per
+    16-bucket segment s the running sums tot_s = sum_{u>=1} u*B[16s+u] and
+    agg_s = sum_u B[16s+u], and sum_s tot_s + 16 * sum_{s>=1} s*agg_s.
+    Bucket 0 is never read.  The kernel adds in another order (slices of K
+    and a tree, the weighted sum bit by bit): its projective limbs differ,
+    its affine window sums are the same."""
     P, K = buckets.shape[:2]
     X, Y, Z = (lift(buckets[..., i, :]) for i in range(3))  # (W, P, K, 32, 256)
     while K > 1:
@@ -226,8 +230,11 @@ def msm_bucket_reduce(buckets):
     if not kernels.use_kernel(dev, "msm_bucket_reduce"):
         return msm_bucket_reduce_plain(buckets)
     out = torch.empty((P, N_WINDOWS, 3, 8), dtype=torch.int32, device=dev)
-    kernels.launch("msm_bucket_reduce_launch", buckets.data_ptr(), out.data_ptr(), P, K,
-                   kernels.stream_of(buckets))
+    parts = kernels.library().msm_bucket_reduce_parts(K)
+    part = torch.empty((P * N_WINDOWS * parts, 3, 8), dtype=torch.int32, device=dev)
+    done = torch.zeros(P * N_WINDOWS, dtype=torch.int32, device=dev)
+    kernels.launch("msm_bucket_reduce_launch", buckets.data_ptr(), out.data_ptr(),
+                   part.data_ptr(), done.data_ptr(), P, K, kernels.stream_of(buckets))
     kernels.LAUNCHES["msm_bucket_reduce"] += 1
     return out
 

@@ -130,15 +130,15 @@ def launch_bounds(csrc: str) -> dict:
     return out
 
 
-def ptxas_info(err: str) -> dict:
-    """{kernel: {registers, stack, spill_stores, spill_loads}} for KERNELS
+def ptxas_info(err: str, kernels=KERNELS) -> dict:
+    """{kernel: {registers, stack, spill_stores, spill_loads}} for `kernels`
     from ptxas -v's report."""
     info, fn = {}, None
     for line in err.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)",
                       line)
         if m:
-            fn = next((k for k in KERNELS if k in m.group(1)), None)
+            fn = next((k for k in kernels if k in m.group(1)), None)
             continue
         if fn is None:
             continue
