@@ -17,16 +17,18 @@ Phases, any failure exits nonzero:
        ntt_pass through NTTDomain: fft / ifft at n = 16384 (batch 8) and
        coset fft / ifft at m = 131072, against the plain passes on the CPU;
        the MSM kernels against the plain Pippenger at n = 2048, P = 3 (and
-       msm_bucket_reduce on a copy of the buckets with empty buckets,
-       all-identity chunks and a point in bucket 0), and at n = 16384, P = 8
-       against host curve arithmetic on scalars nonzero at 64 seeded
-       positions; and at that shape on dense scalars, where each kernel's
-       time is taken beside its plain version's and the outputs of the timed
-       calls are compared; msm_bucket_reduce (whose projective limbs differ
-       from the plain version's: it adds in another order) also at every
-       batch of the variable-base proof, (P, K) = (8, 64), (1, 512), (5,
-       128), (2, 256), each against its plain version as affine window sums,
-       also on a copy with identities, timed beside it;
+       msm_bucket_reduce on a copy of the buckets with empty buckets and a
+       point in bucket 0), and at n = 16384, P = 8 against host curve
+       arithmetic on scalars nonzero at 64 seeded positions;
+       msm_bucket_accumulate at n = 16384 on dense scalars at every batch of
+       the variable-base proof, P = 8, 1, 5, 2, limb for limb against its
+       plain version and timed beside it, with the Pippenger's scratch
+       bytes, and at P = 8 on skewed rows (all ones, all zero, below 2^16,
+       one scalar repeated, mostly zero); msm_bucket_reduce (whose
+       projective limbs differ from the plain version's: it adds in another
+       order) on those dense buckets (one chunk each), against its plain
+       version as affine window sums, also on a copy with identities, timed
+       beside it;
      the fixed-base table build's four kernels (fp_mont_mul for Fr and Fq,
      fb_bases, fb_mult_chunk, fq_batch_inv) at n = 256, c = 8, bits = 254
      (W = 32, K = 8192, D = 128) on the 52-card Lagrange basis, each against
@@ -72,8 +74,8 @@ Phases, any failure exits nonzero:
      batches (P = 1, 5, 2), against their plain versions, timed; ntt_pass at
      every shape the proof launched, against its plain version, timed; then
      msm_chain at the same shape (P = 8 dense rows, n = 16384: 2^21 leaves
-     per MSM; one leaf round with S = 32, projective rounds with S = 32,
-     32, 32, 2), fb_bases at the chain's shape (W = 256, c = 1), the chain
+     per MSM; one leaf round with S = 32, projective rounds with S = 512,
+     128), fb_bases at the chain's shape (W = 256, c = 1), the chain
      build and every round against its plain version, timed beside it, its
      points against the query's, its whole call timed beside the query's;
   6. the sharded path (parallel/), this slice's main path: an NCCL process
@@ -98,15 +100,17 @@ Phases, any failure exits nonzero:
      ntt_pass and fb_pair_combine also give their
      per-proof device time in the profiled proof (proof_ms), the sum over
      the proof's launches of their timed shapes (proof_events_ms) and the
-     per-proof bound summed likewise (proof_bound_ms); msm_bucket_reduce
-     likewise over its four batches; the Pippenger's kernels give their
+     per-proof bound summed likewise (proof_bound_ms); the Pippenger's two
+     likewise over its four batches (the accumulate with its scratch bytes); the Pippenger's kernels give their
      proof_ms from the variable-base proof's profile, the scan kernels from
      the group proof's; the card line, and
      last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The scan kernels' times are per msm_chain call of P = 8 MSMs, scan_proj_reduce
-summed over its four rounds; their launches are the group proof's.
+summed over its two rounds; their launches are the group proof's.
+msm_bucket_accumulate's time is one wrapper call (its sort, piece and merge
+launches), its proof_ms the three kernels' device time in the profile.
 The query kernels' times are per query of P = 8 MSMs, summed over its
 levels (each level's time is logged): AFFINE_LEVELS batch-affine levels
 (fb_pair_den, fq_batch_inv, fb_pair_combine); fb_fold's is the whole tail
@@ -377,9 +381,12 @@ def check_msm(dev, rng, rate):
     rows[0][:5] = [0] * 5
     bases = M.MSMBases(points, dev)
     std = fr.from_mont(torch.stack([fr.to_mont_limbs(r, dev) for r in rows]))
-    K = M.pick_chunks(n, P, dev)
-    kb = M.msm_bucket_accumulate(bases.x, bases.y, std, K)
-    pb = M.msm_bucket_accumulate_plain(bases.x, bases.y, std, K)
+    L = M.pick_piece(n, P, dev)
+    kb = M.msm_bucket_accumulate(bases.x, bases.y, std, L)
+    pb = M.msm_bucket_accumulate_plain(bases.x, bases.y, std, L)
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"msm n={n} P={P}: msm_bucket_accumulate disagrees with its plain "
+                             "version")
     ks = M.msm_bucket_reduce(kb)
     host = [M.host_msm(points, r) for r in rows]
     res = {
@@ -402,8 +409,8 @@ def check_msm(dev, rng, rate):
                  window_points(M.msm_bucket_reduce_plain(eb))) != 0:
         raise AssertionError(f"msm n={n} P={P}: msm_bucket_reduce disagrees with its plain "
                              "version on buckets with identities")
-    log(f"msm n={n} P={P} K={K}: kernels == plain == host; msm_bucket_reduce == plain with "
-        "empty buckets and all-identity chunks")
+    log(f"msm n={n} P={P} L={L}: kernels == plain == host (the accumulate's buckets limb for "
+        "limb); msm_bucket_reduce == plain with empty buckets")
 
     # n = 16384, P = 8 on the Lagrange SRS bases, 64 nonzero scalars per row
     n, P = 16384, 8
@@ -429,33 +436,102 @@ def check_msm(dev, rng, rate):
         raise AssertionError("msm n=16384 P=8 disagrees with host curve arithmetic")
     log(f"msm n={n} P={P}: kernels == host bn254")
 
-    # the main path's commit shape (n = 16384, P = 8, r1_commit), dense
-    # scalars: each kernel timed beside its plain version, and the outputs
-    # of those timed calls held against each other as affine points
-    sc = torch.stack([fr.to_mont_limbs([rng.randrange(R_MOD) for _ in range(n)], dev)
-                      for _ in range(P)])
-    std = fr.from_mont(sc)
-    K = M.pick_chunks(n, P, dev)
-    acc_ms, kb = cuda_ms(lambda: M.msm_bucket_accumulate(bases.x, bases.y, std, K))
-    acc_plain_ms, pb = cuda_ms(lambda: M.msm_bucket_accumulate_plain(bases.x, bases.y, std, K),
-                               reps=0)
-    want = M._window_sums_to_points(M.msm_bucket_reduce_plain(pb).cpu())
-    e_acc = point_err(M._window_sums_to_points(M.msm_bucket_reduce_plain(kb).cpu()), want)
-    if e_acc != 0 or None in want:
-        raise AssertionError(f"msm n={n} P={P} dense: the accumulate kernel disagrees with its "
-                             "plain version")
-    log(f"msm_bucket_accumulate (n={n}, P={P}, K={K}): kernel {acc_ms:.4f} ms, "
-        f"plain {acc_plain_ms:.4f} ms, equal as affine window sums")
-    shape = f"n={n} P={P} K={K}"
-    buckets = P * K * M.N_WINDOWS * M.N_BUCKETS * 96
-    nonzero = int((M._digits(std) != 0).sum())  # one mixed addition per nonzero digit
-    acc_bound = bound(2 * n * 32 + P * n * 32 + buckets, nonzero * MADD_PRODUCTS, rate)
-    del pb
-    red = check_reduce_batches(dev, rng, bases, kb, std, rate)
+    acc = check_accumulate(dev, rng, bases, rate)
+    red = check_reduce_batches(dev, acc.pop("buckets"), rate)
     e_red = red.pop("max_abs_err")
-    return ({"max_abs_err": max(err_acc, e, e_acc), "ms": acc_ms, "plain_ms": acc_plain_ms,
-             "shape": shape, **acc_bound},
+    return ({**acc, "max_abs_err": max(err_acc, e, acc["max_abs_err"])},
             {"max_abs_err": max(err_red, e, e_red), **red})
+
+
+def skewed_rows(n: int, P: int, rng):
+    """P rows of n scalars as a proof's witness columns make them, the
+    accumulate's hard cases: all ones (every point in bucket 1 of window 0),
+    all zero, values below 2^16 (two windows used), one scalar repeated at
+    every point (one bucket a window), mostly zero with small values, and
+    dense rows after them."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+
+    s = rng.randrange(R_MOD)
+    kinds = [[1] * n, [0] * n, [rng.randrange(1 << 16) for _ in range(n)], [s] * n,
+             [rng.randrange(16) if rng.random() < 0.1 else 0 for _ in range(n)]]
+    while len(kinds) < P:
+        kinds.append([rng.randrange(R_MOD) for _ in range(n)])
+    return kinds[:P]
+
+
+def acc_bound(std, n: int, rate) -> dict:
+    """msm_bucket_accumulate's bound: a mixed addition per nonzero digit; the
+    bases and the scalars read once, the (P, 1, 32, 256) buckets written
+    once."""
+    from uzkge_tpu_torch.msm import msm as M
+
+    P = std.shape[0]
+    nonzero = int((M._digits(std) != 0).sum())
+    return bound(2 * n * 32 + P * n * 32 + P * M.N_WINDOWS * M.N_BUCKETS * 96,
+                 nonzero * MADD_PRODUCTS, rate)
+
+
+def check_accumulate(dev, rng, bases, rate):
+    """msm_bucket_accumulate at n = 16384 against its plain version on the
+    same inputs, limb for limb: on dense rows at the variable-base proof's
+    four batches P = 8, 1, 5, 2 (r1, r2, r3's t split, r5), each timed
+    beside the plain version (CUDA events, mean of 5; the plain one cold),
+    with the Pippenger's scratch (peak device memory of an accumulate and
+    its reduce, beyond their inputs); then at P = 8 on skewed_rows.  Returns
+    the P = 8 row with the per-proof sums, and the dense buckets by P (the
+    reduce's inputs)."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.msm import msm as M
+
+    n = bases.n
+    tot = {"proof_events_ms": 0.0, "proof_plain_ms": 0.0, "proof_bound_ms": 0.0}
+    row, buckets = None, {}
+    for P in (8, 1, 5, 2):
+        sc = torch.stack([fr.to_mont_limbs([rng.randrange(R_MOD) for _ in range(n)], dev)
+                          for _ in range(P)])
+        std = fr.from_mont(sc)
+        L = M.pick_piece(n, P, dev)
+        ms, kb = cuda_ms(lambda: M.msm_bucket_accumulate(bases.x, bases.y, std, L))
+        plain_ms, pb = cuda_ms(lambda: M.msm_bucket_accumulate_plain(bases.x, bases.y, std, L),
+                               reps=0)
+        if not torch.equal(kb, pb):
+            raise AssertionError(f"msm_bucket_accumulate (n={n}, P={P}, L={L}) disagrees with "
+                                 "its plain version")
+        del pb
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        M.msm_bucket_reduce(M.msm_bucket_accumulate(bases.x, bases.y, std, L))
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - held
+        b = acc_bound(std, n, rate)
+        log(f"msm_bucket_accumulate (n={n}, P={P}, L={L}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), equal limb for "
+            f"limb; Pippenger scratch (accumulate + reduce) {scratch} B")
+        tot["proof_events_ms"] += ms
+        tot["proof_plain_ms"] += plain_ms
+        tot["proof_bound_ms"] += b["bound_ms"]
+        buckets[P] = kb
+        if P == 8:
+            row = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                   "shape": f"n={n} P={P} L={L}", "scratch_bytes": scratch, **b}
+    P = 8
+    std = fr.from_mont(torch.stack([fr.to_mont_limbs(r, dev) for r in skewed_rows(n, P, rng)]))
+    L = M.pick_piece(n, P, dev)
+    kb = M.msm_bucket_accumulate(bases.x, bases.y, std, L)
+    pb = M.msm_bucket_accumulate_plain(bases.x, bases.y, std, L)
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"msm_bucket_accumulate (n={n}, P={P}, L={L}) disagrees with its "
+                             "plain version on skewed rows")
+    if point_err(window_points(M.msm_bucket_reduce(kb)),
+                 window_points(M.msm_bucket_reduce_plain(pb))) != 0:
+        raise AssertionError("msm_bucket_reduce disagrees with its plain version on the skewed "
+                             "rows' buckets")
+    log(f"msm_bucket_accumulate (n={n}, P={P}, L={L}) on skewed rows (all ones, all zero, below "
+        "2^16, one scalar repeated, mostly zero, dense): equal limb for limb")
+    log("msm_bucket_accumulate per proof (P = 8, 1, 5, 2): " + json.dumps(tot))
+    return {**row, **tot, "buckets": buckets}
 
 
 def reduce_bound(P: int, K: int, rate) -> dict:
@@ -479,17 +555,14 @@ def window_points(wsums):
 
 
 def identity_buckets(kb):
-    """A copy of (P, K, 32, 256, 3, 8) buckets with a third of them, one
-    whole chunk (K > 1) and one whole window the identity (0 : 1 : 0), and
-    bucket 0 of every window a point (the reduce must ignore it)."""
+    """A copy of the accumulate's (P, 1, 32, 256, 3, 8) buckets with a third
+    of them and one whole window the identity (0 : 1 : 0), and bucket 0 of
+    every window a point (the reduce must ignore it)."""
     from uzkge_tpu_torch.ff.field import fq
 
-    P, K = kb.shape[:2]
     out = kb.clone()
     g = torch.Generator(device=out.device).manual_seed(9)
     empty = torch.rand(out.shape[:4], generator=g, device=out.device) < 1 / 3
-    if K > 1:
-        empty[:, K // 2] = True
     empty[:, :, 3] = True
     out[empty] = torch.stack([torch.zeros(8, dtype=torch.int32, device=out.device),
                               fq.const(1, out.device),
@@ -498,30 +571,22 @@ def identity_buckets(kb):
     return out
 
 
-def check_reduce_batches(dev, rng, bases, kb8, std8, rate):
+def check_reduce_batches(dev, buckets, rate):
     """msm_bucket_reduce against msm_bucket_reduce_plain as affine window sums
     (their projective limbs differ: the kernel adds in another order) at every
-    batch the proof's commits use, (P, K) = (8, 64), (1, 512), (5, 128), (2,
-    256) at n = 16384, each on the accumulate kernel's buckets of dense
-    random scalars (P = 8: those of check_msm), timed beside the plain
-    version (CUDA events, mean of 5; the plain one cold), and on a copy with
-    empty buckets and all-identity chunks and windows.  Returns the P = 8
-    row with the per-proof sums of the times and bounds."""
-    from uzkge_tpu_torch.constants.bn254 import R_MOD
-    from uzkge_tpu_torch.ff.field import fr
+    batch the proof's commits use, P = 8, 1, 5, 2 at n = 16384, each on the
+    accumulate kernel's buckets of dense random scalars (check_accumulate's,
+    `buckets` by P: one chunk, K = 1), timed beside the plain version (CUDA
+    events, mean of 5; the plain one cold), and on a copy with empty buckets
+    and whole windows of them.  Returns the P = 8 row with the per-proof
+    sums of the times and bounds."""
     from uzkge_tpu_torch.msm import msm as M
 
-    n = bases.n
+    n = 16384
     tot = {"proof_events_ms": 0.0, "proof_plain_ms": 0.0, "proof_bound_ms": 0.0}
     row = None
     for P in (8, 1, 5, 2):
-        if P == 8:
-            kb, std = kb8, std8
-        else:
-            sc = torch.stack([fr.to_mont_limbs([rng.randrange(R_MOD) for _ in range(n)], dev)
-                              for _ in range(P)])
-            std = fr.from_mont(sc)
-            kb = M.msm_bucket_accumulate(bases.x, bases.y, std, M.pick_chunks(n, P, dev))
+        kb = buckets.pop(P)
         K = kb.shape[1]
         ms, ks = cuda_ms(lambda: M.msm_bucket_reduce(kb))
         plain_ms, kp = cuda_ms(lambda: M.msm_bucket_reduce_plain(kb), reps=0)
@@ -537,7 +602,7 @@ def check_reduce_batches(dev, rng, bases, kb8, std8, rate):
         b = reduce_bound(P, K, rate)
         log(f"msm_bucket_reduce (P={P}, K={K}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); equal as affine window sums, also "
-            f"with empty buckets and all-identity chunks")
+            f"with empty buckets")
         tot["proof_events_ms"] += ms
         tot["proof_plain_ms"] += plain_ms
         tot["proof_bound_ms"] += b["bound_ms"]
@@ -554,6 +619,8 @@ def check_reduce_batches(dev, rng, bases, kb8, std8, rate):
 PROOF_KERNELS = ("ntt_pass", "fp_mont_mul", "fb_select", "fb_pair_den", "fq_batch_inv",
                  "fb_pair_combine", "fb_fold")
 VB_KERNELS = ("msm_bucket_accumulate", "msm_bucket_reduce")  # the fixed_base=False proof
+ACC_KERNELS = ("msm_bucket_accumulate_sort_kernel", "msm_bucket_accumulate_piece_kernel",
+               "msm_bucket_accumulate_merge_kernel")  # msm_bucket_accumulate's launches
 SETUP_KERNELS = ("fb_bases", "fb_mult_chunk")  # the table build in the proof's set-up
 FB_KERNELS = ("fp_mont_mul", "fb_bases", "fb_mult_chunk", "fq_batch_inv")
 STAGES = ("r1_commit", "r2_commit", "r3_t_split_commit", "r5_openings")
@@ -1266,9 +1333,7 @@ def chain_rounds(errs, x, y, sc, shape_tag, rate=None):
                                 "bytes": 4 * P * K + 64 * rows + 96 * lanes,
                                 "products": MADD_PRODUCTS * int(nz.sum())}}
     proj = {"ms": 0.0, "plain_ms": 0.0, "shape": [], "bytes": 0, "products": 0}
-    per = K // S
-    while per > 1:
-        S = fb.pick_s(per)
+    for S in fb.fold_tiles(K // S):  # reduce_leaves' projective rounds
         N = X.shape[0]
         shape = f"N={N} S={S}"
         (X, Y, Z), ms, pms = compare(errs, "scan_proj_reduce", shape,
@@ -1279,7 +1344,6 @@ def chain_rounds(errs, x, y, sc, shape_tag, rate=None):
         proj["shape"].append(shape)
         proj["bytes"] += 96 * (N + N // S)
         proj["products"] += PADD_PRODUCTS * (N - N // S)  # S - 1 additions per output
-        per //= S
     proj["shape"] = "; ".join(proj["shape"])
     res["scan_proj_reduce"] = proj
     if rate is not None:
@@ -1483,11 +1547,14 @@ def main():
     chain, sc, want = check_chain_full(dev, tbl, rate, errs, query_ms)
     group_launches, prof_grp = sharded_path(dev, golden, ctx, tbl, sc, want)
     prof_vb = ctx["profile_vb"]
-    for res, name, prof_route in ((acc, "msm_bucket_accumulate", prof_vb),
-                                  (red, "msm_bucket_reduce", prof_vb),
-                                  (chain["scan_leaf_reduce"], "scan_leaf_reduce", prof_grp),
-                                  (chain["scan_proj_reduce"], "scan_proj_reduce", prof_grp)):
-        res["proof_ms"] = prof_route.get(f"{name}_kernel", (None,))[0]  # device time per proof
+    for res, names, prof_route in ((acc, ACC_KERNELS, prof_vb),
+                                   (red, ("msm_bucket_reduce_kernel",), prof_vb),
+                                   (chain["scan_leaf_reduce"], ("scan_leaf_reduce_kernel",),
+                                    prof_grp),
+                                   (chain["scan_proj_reduce"], ("scan_proj_reduce_kernel",),
+                                    prof_grp)):
+        # device time per proof, summed over the wrapper's kernels
+        res["proof_ms"] = sum(prof_route[k][0] for k in names) if prof_route else None
     launches.update({k: launches_vb[k] for k in VB_KERNELS})
     launches.update({k: fb_launches[k] for k in SETUP_KERNELS})
     launches.update({k: group_launches[k] for k in ("scan_leaf_reduce", "scan_proj_reduce")})

@@ -8,8 +8,13 @@ Field arithmetic has no rounding, so every comparison is exact (tolerance 0):
     `pl.ds` reads taken as slices and their fori_loop run eagerly (an XLA
     compile of the unrolled body takes many minutes); the leaf round's
     inputs are gathered out of a chain by the JAX package's msm_chain
-    indexing; outputs are compared limb for limb mod p;
-  * the rounds' widths (pick_s) against _pick_S;
+    indexing; the leaf's outputs are compared limb for limb mod p, the
+    projective round's as affine points (it adds by fb_fold's tree, the TPU
+    kernel by two running sums: the same sums, other projective limbs);
+  * reduce_leaves against the JAX package's _reduce_leaves, as affine
+    points, at P = 2 (an all-zero row, zero digits) over two projective
+    rounds;
+  * the leaf round's width (pick_s) against _pick_S;
   * msm_chain on the CPU against uzkge_tpu.msm.fixed_base.msm_chain and the
     host Pippenger at n = 32, P = 1 and 3, with an all-zero row and entries
     p - 1, as affine points;
@@ -220,20 +225,38 @@ def test_scan_leaf_lane_matches_jax_kernel_body(scan_pallas, tmp_path):
         assert _mod_p(o) == w
 
 
+def _curve_proj(rs, count: int, ident_share: float):
+    """`count` projective points (X, Y, Z) (count, 8) each, Fq Montgomery:
+    seeded multiples of G scaled by a seeded z, a share of them the identity
+    (0 : z : 0)."""
+    ks = rs.integers(1, 1 << 62, size=count)
+    zs = rs.integers(1, 1 << 62, size=count)
+    ident = rs.random(count) < ident_share
+    vals = []
+    for k, z, o in zip(ks, zs, ident):
+        z = int(z)
+        if o:
+            vals += [0, z, 0]
+        else:
+            x, y = g1_mul(G1_GEN, int(k))
+            vals += [x * z % Q_MOD, y * z % Q_MOD, z]
+    t = tf.fq.to_mont_limbs(vals, "cpu").reshape(count, 3, 8)
+    return tuple(t[:, i].contiguous() for i in range(3))
+
+
 def test_scan_proj_matches_jax_kernel_body(scan_pallas):
     """scan_proj_reduce_plain against _scan_proj_kernel on _reduce_leaves'
     layout of P = 2 MSMs of 16 projective points each, S = 8, identities
-    among the points."""
+    among the points (lane 0 all of them), as affine points: the TPU kernel
+    adds by two running sums, the port by fb_fold's tree."""
     import jax.numpy as jnp
 
     jfb = scan_pallas
     P, per, S = 2, 16, 8
     rs = np.random.default_rng(6)
-    X, Y, Z = (_rows(_fq_vals(rs, P * per), (P * per,)) for _ in range(3))
-    ident = torch.from_numpy(rs.random(P * per) < 0.25)[:, None]
-    ident[:S] = True  # lane 0: all identities
+    X, Y, Z = _curve_proj(rs, P * per, 0.25)
     one = tf.fq.const(1, "cpu")
-    X, Y, Z = torch.where(ident, 0, X), torch.where(ident, one, Y), torch.where(ident, 0, Z)
+    X[:S], Y[:S], Z[:S] = 0, one, 0  # lane 0: all identities
 
     def lay(t):  # _reduce_leaves' scan layout of one round
         v = _jax_rows(t).reshape(16, P, per)
@@ -241,9 +264,46 @@ def test_scan_proj_matches_jax_kernel_body(scan_pallas):
 
     want = jfb._scan_reduce_tpu(jfb._scan_proj_kernel, S, (lay(X), lay(Y), lay(Z)))
     got = fb.scan_proj_reduce(X, Y, Z, S)
-    for g, w in zip(got, want):
-        assert g.shape == (P * per // S, 8) and _mod_p(g) == _mod_p(_port(w))
-    assert _mod_p(got[2])[0] == 0
+    assert all(g.shape == (P * per // S, 8) for g in got)
+    pts = fb._extract_host(*got)
+    assert pts == fb._extract_host(*(_port(w) for w in want))
+    assert pts[0] is None and None not in pts[1:]
+
+
+def test_reduce_leaves_matches_jax():
+    """reduce_leaves (the leaf round, then scan_proj_reduce over fold_tiles:
+    tiles of 512, then 2) against the JAX package's _reduce_leaves (the leaf
+    round, then running-sum rounds of S = 32, 32) on the CPU at P = 2, K =
+    32,768 leaves over a chain of 64 curve points repeated, digits seeded
+    with a quarter zero, MSM 1 all zero but for one run of leaves: affine
+    points equal."""
+    import jax.numpy as jnp
+    from uzkge_tpu.ff.vfield import vfq_c
+    from uzkge_tpu.msm import fixed_base as jfb
+
+    P, n, W = 2, 256, 128
+    K = W * n
+    S = fb.pick_s(K)
+    J = K // S
+    assert fb.fold_tiles(J) == [512, 2]
+    rs = np.random.default_rng(9)
+    pts = [g1_mul(G1_GEN, int(k)) for k in rs.integers(1, 1 << 62, size=64)]
+    chain = [pts[i % 64] for i in range(2 * K)]
+    ax, ay = (tf.fq.to_mont_limbs([p[j] for p in chain], "cpu") for j in (0, 1))
+    digits = rs.integers(-2, 3, size=(P, K)).astype(np.int32)
+    digits[1] = 0
+    digits[1, 100:140] = rs.choice([-2, -1, 1, 2], size=40)
+    got = fb._extract_host(*fb.reduce_leaves(ax, ay, torch.from_numpy(digits), n))
+
+    idx = fb.chain_rows(torch.from_numpy(digits), n).numpy()
+    d_lay = jnp.moveaxis(jfb._to_scan_layout(jnp.asarray(digits), S), 1, 0).reshape(S, P * J)
+    idx_lay = np.moveaxis(np.asarray(jfb._to_scan_layout(jnp.asarray(idx), S)), 1, 0)
+    gx, gy = (_jax_rows(t)[:, idx_lay.reshape(-1)].reshape(16, S, P * J) for t in (ax, ay))
+    # the compact field form, as the JAX package's msm_chain passes it: the
+    # rounds' scan bodies compile in seconds, not a minute
+    X, Y, Z = jfb._reduce_leaves(gx, gy, d_lay, S, P, J, f=vfq_c)
+    want = fb._extract_host(*(_port(t) for t in (X, Y, Z)))
+    assert got == want and None not in want
 
 
 def test_round_widths_match_jax():

@@ -221,9 +221,19 @@ void scan_leaf_n(const uint32_t *ax, const uint32_t *ay, const int32_t *digits, 
   while ((1LL << lg_n) < n) lg_n++;
   for (long long t = 0; t < P * (K / S); t++)
     scan_leaf_lane(ax, ay, digits, ox, oy, oz, (int)t, (int)K, lg_n, S); }
+// one scan_proj_reduce launch: a block of min(S / 2, 32) threads per output
+// through fb_fold_tile, as scan_proj_reduce_kernel runs it, blocks in turn
 void scan_proj_n(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX, uint32_t *oY,
                  uint32_t *oZ, long long lanes, int S) {
-  for (long long t = 0; t < lanes; t++) scan_proj_lane(X, Y, Z, oX, oY, oZ, t, S); }
+  const int B = S / 2 < 32 ? S / 2 : 32;
+  G1Proj *r = new G1Proj[B];
+  uint32_t *s = new uint32_t[S / 2 * 24];
+  SerialBlock blk{B, r};
+  for (long long t = 0; t < lanes; t++)
+    fb_fold_tile(blk, X, Y, Z, s, s + S / 2 * 8, s + S / 2 * 16, oX, oY, oZ, t, S);
+  delete[] r;
+  delete[] s;
+}
 }
 """
 
@@ -678,10 +688,12 @@ def _il2_scan(step, S, like):
 
 
 def test_scan_lanes_match_jax(header_lib):
-    """scan_reduce.cuh's lanes, compiled by g++, against the JAX package's
-    _leaf_step and _proj_step over vfq in the scan kernels' order: the leaf
-    lane reads its chain rows by digit (P = 2, n = 4, W = 4, S = 8, a lane
-    of zero digits), the projective lane sums S = 4 consecutive points."""
+    """scan_reduce.cuh's leaf lane, compiled by g++, against the JAX package's
+    _leaf_step over vfq in the scan kernel's order (P = 2, n = 4, W = 4, S =
+    8, a lane of zero digits), limb for limb; the projective round
+    (fb_fold_tile, as scan_proj_reduce_kernel runs it) over S = 4 and 16
+    consecutive points against _proj_step's running sums as affine points
+    (the tree adds in another order), identities among the points."""
     from uzkge_tpu.msm.fixed_base import _leaf_step, _proj_step
 
     P, n, W, S = 2, 4, 4, 8
@@ -705,12 +717,23 @@ def test_scan_lanes_match_jax(header_lib):
         assert (o == _from_jv(wv)).all()
     assert _from_jv(want[2])[lanes // 2].tolist() == [0] * 8  # the zero-digit lane
 
-    S, lanes = 4, 6
-    X, Y, Z = (_q_vals(rs, (lanes * S,)) for _ in range(3))
-    out = [np.zeros((lanes, 8), np.uint32) for _ in range(3)]
-    header_lib.scan_proj_n(_p(X), _p(Y), _p(Z), *(_p(o) for o in out), lanes, S)
-    cols = [t.reshape(lanes, S, 8) for t in (X, Y, Z)]
-    want = _il2_scan(lambda f, acc, s: _proj_step(f, acc, *(_jv(c[:, s]) for c in cols)), S,
-                     _jv(cols[0][:, 0]))
-    for o, wv in zip(out, want):
-        assert (o == _from_jv(wv)).all()
+    for S, lanes in ((4, 6), (16, 3)):
+        ks = rs.integers(1, 1 << 62, size=lanes * S)
+        pts = [None if rs.random() < 0.2 else g1_mul(G1_GEN, int(k)) for k in ks]
+        rows = _proj_rows(pts, [int(z) for z in rs.integers(1, 1 << 62, size=lanes * S)])
+        X, Y, Z = (np.ascontiguousarray(rows[:, 8 * i:8 * i + 8]) for i in range(3))
+        out = [np.zeros((lanes, 8), np.uint32) for _ in range(3)]
+        header_lib.scan_proj_n(_p(X), _p(Y), _p(Z), *(_p(o) for o in out), lanes, S)
+        cols = [t.reshape(lanes, S, 8) for t in (X, Y, Z)]
+        want = _il2_scan(lambda f, acc, s: _proj_step(f, acc, *(_jv(c[:, s]) for c in cols)), S,
+                         _jv(cols[0][:, 0]))
+        got = _affine(np.concatenate(out, axis=1))
+        assert got == _affine(np.concatenate([_from_jv(w) for w in want], axis=1)), f"S = {S}"
+        assert got == [_host_sum(pts[t * S:(t + 1) * S]) for t in range(lanes)]
+
+
+def _host_sum(pts):
+    acc = None
+    for p in pts:
+        acc = g1_add(acc, p)
+    return acc

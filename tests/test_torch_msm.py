@@ -3,10 +3,11 @@
   * uzkge_tpu_torch/msm/msm.py::msm on a (P, n, 8) tensor batch against
     uzkge_tpu/msm/msm.py::msm on the same device-array batch at n = 1024,
     P = 3 (above HOST_MSM_MAX), with zero scalars and repeated bases;
-  * the plain accumulate and reduce versions, each fed the other's layout;
+  * the plain accumulate at two piece lengths through the reduce;
   * on a card (marker on_cuda), the two kernels against their plain versions
-    at n = 2048, P = 3 and at n = 16384, P = 1.
-Results are compared as affine points.  JAX is imported inside the test that
+    at n = 2048, P = 3 and at n = 16384, P = 1 (the accumulate's buckets
+    limb for limb).
+Results are otherwise compared as affine points.  JAX is imported inside the test that
 uses it, so that the on_cuda tests also run where JAX is absent
 (`pytest --noconftest -m on_cuda`).
 """
@@ -67,14 +68,15 @@ def test_msm_entry_points_and_host_path():
 
 
 def test_plain_halves_compose_across_chunkings():
-    """Accumulate with one chunking and another: the reduction gives the same
-    affine window sums (buckets agree up to the projective representative)."""
+    """Accumulate with one piece length and another (the pieces and merge
+    levels differ): the reduction gives the same affine window sums (buckets
+    agree up to the projective representative)."""
     points, rows = _inputs(96, 2, 11)
     bases = tm.MSMBases(points, "cpu")
     std = tf.fr.from_mont(torch.stack([tf.fr.to_mont_limbs(r, "cpu") for r in rows]))
     sums = [tm._window_sums_to_points(
         tm.msm_bucket_reduce(tm.msm_bucket_accumulate(bases.x, bases.y, std, K)))
-        for K in (1, 5)]
+        for K in (2, 5)]
     assert sums[0] == sums[1] == [tm.host_msm(points, r) for r in rows]
 
 
@@ -82,14 +84,22 @@ def test_msm_kernels_check_arguments():
     x = torch.zeros(8, 8, dtype=torch.int32)
     std = torch.zeros(1, 8, 8, dtype=torch.int32)
     with pytest.raises(ValueError):
-        tm.msm_bucket_accumulate(x, x, std, 9)
+        tm.msm_bucket_accumulate(x, x, std, 0)  # L < 1
     with pytest.raises(ValueError):
-        tm.msm_bucket_accumulate(x[:4], x, std, 1)
+        tm.msm_bucket_accumulate(x[:4], x, std, 2)
+    with pytest.raises(ValueError):
+        tm.msm_bucket_accumulate(x, x, torch.zeros(2048, 8, 8, dtype=torch.int32), 2)  # P * 32
     with pytest.raises(TypeError):
         tm.msm_bucket_reduce(torch.zeros(1, 1, 32, 256, 3, 8, dtype=torch.int64))
-    assert tm.pick_chunks(16384, 8, "cpu") <= 4
-    K = tm.pick_chunks(16384, 8, "cuda")
-    assert 8 * 32 * K >= tm.LANES_TARGET and 16384 // K >= 16
+    # the proof's batches at n = 16384 on an H100's 132 SMs: the pieces of
+    # dense digits, P * 32 * 16384 / L, give at least ACC_WARPS warps an SM,
+    # and no piece is longer than ACC_PIECE_MAX
+    Ls = {P: tm.pick_piece(16384, P, "cpu") for P in (8, 1, 5, 2)}
+    assert Ls == {8: 16, 1: 7, 5: 16, 2: 15}
+    for P, L in Ls.items():
+        assert P * 32 * 16384 // L >= tm.ACC_WARPS * 32 * tm.H100_SMS
+        assert L <= tm.ACC_PIECE_MAX
+    assert tm.pick_piece(1024, 3, "cpu") == 2  # never below 2
 
 
 @pytest.fixture
@@ -103,18 +113,19 @@ def cuda_device():
 @pytest.mark.parametrize("n,P", [(2048, 3), (16384, 1)], ids=["n2048P3", "n16384P1"])
 def test_msm_kernels_match_plain(cuda_device, n, P):
     """Both kernels against the plain versions and the host Pippenger, at
-    the K that pick_chunks gives: 128 at n = 2048, P = 3 (2 slices a bucket
-    in the reduce); 512 at n = 16384, P = 1, the proof's r2_commit (8)."""
+    the L that pick_piece gives (the accumulate's buckets equal limb for
+    limb); n = 16384, P = 1 is the proof's r2_commit."""
     points, rows = _inputs(n, P, 13)
     bases = tm.MSMBases(points, cuda_device)
     sc = torch.stack([tf.fr.to_mont_limbs(r, cuda_device) for r in rows]).to(cuda_device)
     std = tf.fr.from_mont(sc)
-    K = tm.pick_chunks(n, P, cuda_device)
+    L = tm.pick_piece(n, P, cuda_device)
     before = dict(kernels.LAUNCHES)
-    kb = tm.msm_bucket_accumulate(bases.x, bases.y, std, K)
-    pb = tm.msm_bucket_accumulate_plain(bases.x, bases.y, std, K)
+    kb = tm.msm_bucket_accumulate(bases.x, bases.y, std, L)
+    pb = tm.msm_bucket_accumulate_plain(bases.x, bases.y, std, L)
     ks = tm.msm_bucket_reduce(kb)
     torch.cuda.synchronize()
+    assert torch.equal(kb, pb)
     assert kernels.LAUNCHES["msm_bucket_accumulate"] == before["msm_bucket_accumulate"] + 1
     assert kernels.LAUNCHES["msm_bucket_reduce"] == before["msm_bucket_reduce"] + 1
     host = [tm.host_msm(points, r) for r in rows]

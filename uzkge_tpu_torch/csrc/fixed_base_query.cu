@@ -54,11 +54,6 @@
 //   canonical, where the TPU kept afield's lazy [0, 2p).
 #include <cuda_runtime.h>
 
-#include <map>
-#include <mutex>
-#include <utility>
-#include <vector>
-
 #include "fixed_base_query.cuh"
 #include "launch.cuh"
 
@@ -185,25 +180,6 @@ fb_pair_combine_kernel(const uint32_t *__restrict__ x, const uint32_t *__restric
   }
 }
 
-#define FB_FOLD_TILE 512  // the largest tile: 8^3 points
-#define FB_FOLD_THREADS 256  // the widest block
-
-// The CUDA block as fb_fold_tile sees it: the calling thread and its point.
-struct FoldBlock {
-  int B;
-  G1Proj r;
-  template <class F> ZK_HD void each(F f) {
-#ifdef __CUDA_ARCH__
-    f((int)threadIdx.x, r);
-#endif
-  }
-  ZK_HD void sync() {
-#ifdef __CUDA_ARCH__
-    __syncthreads();
-#endif
-  }
-};
-
 __global__ void __launch_bounds__(FB_FOLD_THREADS, 2)
 fb_fold_kernel(const uint32_t *__restrict__ X, const uint32_t *__restrict__ Y,
                const uint32_t *__restrict__ Z, uint32_t *__restrict__ oX,
@@ -214,38 +190,6 @@ fb_fold_kernel(const uint32_t *__restrict__ X, const uint32_t *__restrict__ Y,
   FoldBlock blk;
   blk.B = (int)blockDim.x;
   fb_fold_tile(blk, X, Y, Z, sX, sY, sZ, oX, oY, oZ, (long long)blockIdx.x, T);
-}
-
-// The widest block (a power of two from 32 to min(T / 2, 256)) at which all
-// `tiles` blocks are resident at once, or the widest if none is.  The blocks
-// resident on the card at each width are queried once per (device, T).
-int fold_threads(long long tiles, int T) {
-  static std::mutex mu;
-  static std::map<std::pair<int, int>, std::vector<long long>> resident;
-  int widest = 32;
-  while (widest * 2 <= T / 2 && widest * 2 <= FB_FOLD_THREADS) widest *= 2;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  std::vector<long long> at;  // at[i]: blocks of 32 << i threads resident at once
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    auto it = resident.find({dev, T});
-    if (it == resident.end()) {
-      int sms = 0;
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      std::vector<long long> v;
-      for (int b = 32; b <= widest; b *= 2) {
-        int per_sm = 0;
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fb_fold_kernel, b, (size_t)T * 48);
-        v.push_back((long long)per_sm * sms);
-      }
-      it = resident.emplace(std::make_pair(dev, T), v).first;
-    }
-    at = it->second;
-  }
-  for (int i = (int)at.size() - 1; i >= 0; i--)
-    if (at[i] >= tiles) return 32 << i;
-  return widest;
 }
 
 unsigned blocks_for(long long lanes, int threads) {
@@ -293,8 +237,8 @@ extern "C" int fb_pair_combine_launch(const void *x, const void *y, const void *
 extern "C" int fb_fold_launch(const void *X, const void *Y, const void *Z, void *oX, void *oY,
                               void *oZ, long long tiles, int T, void *stream) {
   if (tiles < 1 || T < 2 || T > FB_FOLD_TILE || (T & (T - 1))) return (int)cudaErrorInvalidValue;
-  fb_fold_kernel<<<(unsigned)tiles, fold_threads(tiles, T), (size_t)T * 48,
-                   (cudaStream_t)stream>>>(
+  const int B = fold_threads((const void *)fb_fold_kernel, tiles, T, FB_FOLD_THREADS);
+  fb_fold_kernel<<<(unsigned)tiles, B, (size_t)T * 48, (cudaStream_t)stream>>>(
       (const uint32_t *)X, (const uint32_t *)Y, (const uint32_t *)Z, (uint32_t *)oX,
       (uint32_t *)oY, (uint32_t *)oZ, T);
   return (int)cudaGetLastError();

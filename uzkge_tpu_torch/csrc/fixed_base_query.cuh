@@ -107,6 +107,9 @@ ZK_HD void fb_pair_combine_lane(const uint32_t *x, const uint32_t *y, const uint
   st_fp(yo + t * 8, oy);
 }
 
+#define FB_FOLD_TILE 512     // the largest tile: 8^3 points
+#define FB_FOLD_THREADS 256  // the widest block
+
 // fb_fold: the width of the next fold of n points: 8-to-1 while 8 divides n
 // (the TPU's _fold8 levels), then the 2 or 4 left in one halving tree (the
 // XLA remainder).
@@ -184,3 +187,20 @@ ZK_HD void fb_fold_tile(Block &blk, const uint32_t *__restrict__ X,
     if (t == 0) st_point(oX, oY, oZ, tile, r);
   });
 }
+
+// The CUDA block as fb_fold_tile sees it: the calling thread and its point
+// (fb_fold_kernel, and scan_proj_reduce_kernel in scan_reduce.cu).
+struct FoldBlock {
+  int B;
+  G1Proj r;
+  template <class F> ZK_HD void each(F f) {
+#ifdef __CUDA_ARCH__
+    f((int)threadIdx.x, r);
+#endif
+  }
+  ZK_HD void sync() {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+};

@@ -13,20 +13,26 @@
 // the chunks with a tree and runs a 255-step weighted-sum scan
 // (msm.py:197-232).
 //
-// msm_bucket_accumulate: one thread owns one (p, k, w) lane and its 256
-//   buckets in device memory, laid out (P, K, 32, 256, 3, 8).  It sets them to
-//   the identity and walks chunk k's points in order, adding point i into
-//   bucket digit(p, i, w) with the mixed addition (digit 0 is skipped).  The
-//   32 threads of a warp are the 32 windows of one (p, k): they read the same
-//   point and the same 32 scalar bytes, so those loads are shared.  Bound:
-//   Fq multiplications (11 per mixed addition); the wrapper picks K so that
-//   P*32*K lanes fill the card while the fold below stays no larger than the
-//   walk.
+// msm_bucket_accumulate replaces the TPU's bucket scan: the sum of each (p,
+//   w, bucket)'s points, into (P, 1, 32, 256) buckets.  Bound: operations, a
+//   mixed addition (11 products) per nonzero digit, against 68 B per point
+//   read.  The kernel it replaces gave a thread a (p, chunk, w) lane and its
+//   256 buckets in device memory, one load-add-store per point; it needed K
+//   chunks for lanes (16,384 lanes at P = 8: 4 warps an SM), and the reduce
+//   then folded the K chunks, more additions than the walk itself.  Here
+//   (msm.cuh, "The accumulate") a counting sort in shared memory lists each
+//   window's points by digit, and a thread sums a piece of at most L points
+//   of one bucket in registers; the wrapper picks L per call so that the
+//   pieces give at least 16 warps an SM at every batch, and a bucket's
+//   pieces meet in a binary tree, one launch a level, which a window leaves
+//   at once when its buckets need no more levels.  Skewed digits (a bucket
+//   with all n points) add levels, never a longer chain.  The reduce gets
+//   K = 1.
 // msm_bucket_reduce replaces the TPU's chunk fold tree and weighted-sum scan:
 //   the fold of each (p, w, bucket) over the K chunks, then sum_b b*B_b per
 //   (p, w), into (P, 32, 3, 8) window sums.  Bound: operations, P*K*8192
-//   projective additions of 12 products (4.2-5.2 M a call, as the prover
-//   keeps P*K at 512 or 640) against 96 B read per addition.  What costs
+//   projective additions of 12 products against 96 B read per addition (the
+//   accumulate hands it K = 1: the weighted sum alone).  What costs
 //   time on this card is depth: a thread's additions are a dependent chain,
 //   and an SM issues at its ceiling only with a few warps busy on each
 //   scheduler.  A block per (p, w) with a thread per bucket, as before,
@@ -45,40 +51,9 @@
 
 namespace {
 
-__global__ void msm_bucket_accumulate_kernel(const uint32_t *__restrict__ bx,
-                                             const uint32_t *__restrict__ by,
-                                             const uint8_t *__restrict__ std_bytes,
-                                             uint32_t *__restrict__ buckets, int P, int n,
-                                             int K, int Cn) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (long long)P * K * MSM_WINDOWS) return;
-  const int w = (int)(lane % MSM_WINDOWS);
-  const long long pk = lane / MSM_WINDOWS;
-  const int k = (int)(pk % K);
-  const int p = (int)(pk / K);
-  uint32_t *B = buckets + lane * MSM_BUCKETS * MSM_PT;
-
-  G1Proj acc;
-  g1_set_identity(acc);
-  for (int b = 0; b < MSM_BUCKETS; b++) msm_st(B + b * MSM_PT, acc);
-
-  const int i0 = k * Cn;
-  const int i1 = min(n, i0 + Cn);
-  const uint8_t *digits = std_bytes + ((size_t)p * n) * 32 + w;
-  for (int i = i0; i < i1; i++) {
-    const int d = digits[(size_t)i * 32];
-    if (d == 0) continue;
-    uint32_t x[8], y[8];
-    ld_fp(x, bx + (size_t)i * 8);
-    ld_fp(y, by + (size_t)i * 8);
-    uint32_t *slot = B + d * MSM_PT;
-    msm_ld(acc, slot);
-    g1_madd(acc, acc, x, y);
-    msm_st(slot, acc);
-  }
-}
-
-struct ReduceBlock {
+// A CUDA block as msm.cuh's block functions see it: the calling thread and
+// its point.
+struct ThreadBlock {
   int B;
   G1Proj r;
   template <class F> ZK_HD void each(F f) {
@@ -104,7 +79,7 @@ msm_bucket_reduce_kernel(const uint32_t *__restrict__ buckets, uint32_t *__restr
   uint32_t *sF = reinterpret_cast<uint32_t *>(sF4);
   uint32_t *sT = reinterpret_cast<uint32_t *>(sT4);
   const int pw = (int)blockIdx.x / T, g = (int)blockIdx.x % T;
-  ReduceBlock blk;
+  ThreadBlock blk;
   blk.B = MSM_BUCKETS;
   msm_reduce_group(blk, buckets, sF, sT, part, pw, g, T, K);
   __threadfence();  // this group's sums reach L2 before the count says so
@@ -116,18 +91,77 @@ msm_bucket_reduce_kernel(const uint32_t *__restrict__ buckets, uint32_t *__restr
   msm_window_sum(blk, part, sT, out, pw, T);
 }
 
+constexpr int ACC_PIECE_THREADS = 128;
+
+__global__ void __launch_bounds__(ACC_SORT_THREADS)
+msm_bucket_accumulate_sort_kernel(const uint8_t *__restrict__ std_bytes, int32_t *__restrict__ idx,
+                                  int32_t *__restrict__ meta, uint32_t *__restrict__ buckets,
+                                  int n, int L) {
+  __shared__ int sh[ACC_SORT_SHARED];
+  ThreadBlock blk;
+  blk.B = ACC_SORT_THREADS;
+  msm_acc_sort(blk, std_bytes, idx, meta, buckets, sh, (int)blockIdx.x, n, L);
+}
+
+// Block (x, pw): pieces x * ACC_PIECE_THREADS .. of window pw.
+__global__ void __launch_bounds__(ACC_PIECE_THREADS, 4)
+msm_bucket_accumulate_piece_kernel(const uint32_t *__restrict__ bx, const uint32_t *__restrict__ by,
+                                   const int32_t *__restrict__ idx,
+                                   const int32_t *__restrict__ meta, uint32_t *__restrict__ buckets,
+                                   uint32_t *__restrict__ extra, int n, int XS) {
+  __shared__ int32_t pst[ACC_META];
+  const int pw = (int)blockIdx.y;
+  const int32_t *m = meta + (size_t)pw * ACC_META_INTS;
+  for (int k = threadIdx.x; k < ACC_META; k += blockDim.x) pst[k] = m[ACC_META + k];
+  __syncthreads();
+  const int s = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  msm_acc_piece(bx, by, idx, m, pst, buckets, extra, pw, s, n, XS);
+}
+
+// The merge level at stride h; the blocks of a window whose buckets have at
+// most h pieces each return at once.
+__global__ void __launch_bounds__(ACC_PIECE_THREADS, 4)
+msm_bucket_accumulate_merge_kernel(const int32_t *__restrict__ meta, uint32_t *buckets,
+                                   uint32_t *extra, int h, int XS) {
+  __shared__ int32_t pst[ACC_META];
+  const int pw = (int)blockIdx.y;
+  const int32_t *m = meta + (size_t)pw * ACC_META_INTS;
+  if (m[3 * ACC_META] <= h) return;
+  for (int k = threadIdx.x; k < ACC_META; k += blockDim.x) pst[k] = m[ACC_META + k];
+  __syncthreads();
+  const int s = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  msm_acc_merge(m, pst, buckets, extra, pw, s, h, XS);
+}
+
 }  // namespace
 
+// The extra points a window needs at piece length L: ceil(n / L).
+extern "C" int msm_bucket_accumulate_extra(int n, int L) { return (n + L - 1) / L; }
+
+// buckets: P * 32 * 256 points; idx: P * 32 * n ints; meta: P * 32 *
+// ACC_META_INTS ints; extra: P * 32 * msm_bucket_accumulate_extra(n, L)
+// points.  One sort launch, one piece launch, then a merge launch for each
+// stride 1, 2, 4, ... below ceil(n / L), the most pieces a bucket can have.
 extern "C" int msm_bucket_accumulate_launch(const void *bx, const void *by, const void *std_limbs,
-                                            void *buckets, int P, int n, int K, void *stream) {
-  if (P < 1 || n < 1 || K < 1 || K > n) return (int)cudaErrorInvalidValue;
-  const int Cn = (n + K - 1) / K;
-  const long long lanes = (long long)P * K * MSM_WINDOWS;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
-  msm_bucket_accumulate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t *)bx, (const uint32_t *)by, (const uint8_t *)std_limbs,
-      (uint32_t *)buckets, P, n, K, Cn);
+                                            void *buckets, void *idx, void *meta, void *extra,
+                                            int P, int n, int L, void *stream) {
+  if (P < 1 || P * MSM_WINDOWS > 65535 || n < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int XS = (n + L - 1) / L, slots = XS + MSM_BUCKETS - 1;  // the most pieces a window
+  msm_bucket_accumulate_sort_kernel<<<P * MSM_WINDOWS, ACC_SORT_THREADS, 0, st>>>(
+      (const uint8_t *)std_limbs, (int32_t *)idx, (int32_t *)meta, (uint32_t *)buckets, n, L);
+  const dim3 grid((unsigned)((slots + ACC_PIECE_THREADS - 1) / ACC_PIECE_THREADS),
+                  (unsigned)(P * MSM_WINDOWS));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  msm_bucket_accumulate_piece_kernel<<<grid, ACC_PIECE_THREADS, 0, st>>>(
+      (const uint32_t *)bx, (const uint32_t *)by, (const int32_t *)idx, (const int32_t *)meta,
+      (uint32_t *)buckets, (uint32_t *)extra, n, XS);
+  for (int h = 1; h < XS; h *= 2) {
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    msm_bucket_accumulate_merge_kernel<<<grid, ACC_PIECE_THREADS, 0, st>>>(
+        (const int32_t *)meta, (uint32_t *)buckets, (uint32_t *)extra, h, XS);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
-// Per-block arithmetic of msm_bucket_reduce (csrc/msm.cu), the second half of
-// the variable-base Pippenger over BN254 G1, as __host__ __device__ code on
-// top of fixed_base.cuh.
+// Per-block and per-thread arithmetic of the variable-base Pippenger over
+// BN254 G1 (csrc/msm.cu), as __host__ __device__ code on top of
+// fixed_base.cuh: msm_bucket_reduce's blocks first, then the accumulate's
+// sort, pieces and merge (below, "The accumulate").
 //
-// The input is the accumulate kernel's (P, K, 32, 256) projective buckets,
+// The reduce's input is the accumulate's (P, K, 32, 256) projective buckets,
 // 24 words each (X, Y, Z, 8 limbs apiece, Fq Montgomery).  For window (p, w)
 // the output is sum_b b * F_b, F_b = sum_k B[p, k, w, b] (bucket 0 has weight
 // 0 and is never read).  The work of a window is split over T blocks of 256
@@ -202,4 +203,199 @@ ZK_HD void msm_window_sum(Block &blk, const uint32_t *part, uint32_t *sT,
   blk.each([&](int t, G1Proj &r) {
     if (t == 0) msm_st(out + (size_t)pw * MSM_PT, r);
   });
+}
+
+// ------------------------------------------------------------ The accumulate
+//
+// msm_bucket_accumulate sums the points of each (p, w, bucket) into buckets
+// (P, 1, 32, 256, 3, 8), window pw = p * 32 + w, digit w of scalar (p, i)
+// being byte w of its 32-byte standard form.  Three kinds of launch:
+//   sort: a block of ACC_SORT_THREADS per window, a stable counting sort of
+//     the window's point indices by nonzero digit into idx[pw * n ..]
+//     (bucket 1's points first, each bucket's in index order) and the
+//     window's three offset tables in meta; the identity into every empty
+//     bucket (bucket 0 included);
+//   piece: bucket b's c points are cut into q = ceil(c / L) pieces, piece j
+//     the entries c*j/q .. c*(j+1)/q - 1 of its list (at most L points); a
+//     thread per piece sums them in registers, its first point (x, y, 1)
+//     starting the sum and each next one added by g1_madd, and stores the
+//     sum: piece 0 into the bucket's own slot of the output, pieces j >= 1
+//     among the window's XS = ceil(n / L) extra points;
+//   merge, one launch per level of a binary tree (stride h = 1, 2, 4, ...
+//     below XS): the thread of piece j with j % 2h == 0 adds piece j + h,
+//     if below q, into its own by g1_padd; after the last level piece 0
+//     holds the bucket.  A window whose buckets all have at most h pieces
+//     leaves the level at once.
+// No thread adds more than L points or more than one piece a level,
+// whatever the digits: a skewed bucket only takes more levels.
+// msm_bucket_accumulate_plain (msm/msm.py) cuts and adds in the same order,
+// so the kernels equal it limb for limb.
+
+constexpr int ACC_SORT_WARPS = 32;
+constexpr int ACC_SORT_THREADS = ACC_SORT_WARPS * 32;
+constexpr int ACC_SORT_SHARED = ACC_SORT_WARPS * MSM_BUCKETS + MSM_BUCKETS;  // ints
+// Window pw's offset tables, ACC_META ints each from meta + pw * ACC_META_INTS:
+// its sorted list's first entry of bucket b (b <= 256; the last is the
+// window's nonzero digits), its first piece of bucket b (the last: its
+// pieces), its first extra point of bucket b; then the most pieces a bucket
+// of the window has.
+constexpr int ACC_META = MSM_BUCKETS + 1;
+constexpr int ACC_META_INTS = 3 * ACC_META + 1;
+
+// Digit w of scalar (p, i) of the (P, n) scalars' 32-byte standard forms.
+ZK_HD int acc_digit(const uint8_t *std_bytes, int n, int pw, int i) {
+  return std_bytes[((size_t)(pw / MSM_WINDOWS) * n + i) * 32 + pw % MSM_WINDOWS];
+}
+
+// *c += 1 for a count in shared memory that several threads raise.
+ZK_HD void acc_inc(int *c) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(c, 1);
+#else
+  (*c)++;
+#endif
+}
+
+// The sort of window pw (sh: ACC_SORT_SHARED ints of scratch).  Warp v of
+// the block (ACC_SORT_WARPS of them) takes the R = ceil(n / 32) consecutive
+// points from v * R, 32 at a step: it counts its digits, thread b then works
+// out the window's offsets of bucket b and each warp's first entry in it, and
+// the warps place their points in step order, lanes in order (on the card a
+// lane's rank among the lanes of its step with its digit comes from
+// __match_any_sync), so every bucket lists its points by index.
+template <class Block>
+ZK_HD void msm_acc_sort(Block &blk, const uint8_t *std_bytes, int32_t *idx, int32_t *meta,
+                        uint32_t *buckets, int *sh, int pw, int n, int L) {
+  int *cnt = sh;                                 // [warp][bucket]: counts, then offsets
+  int *tot = sh + ACC_SORT_WARPS * MSM_BUCKETS;  // [bucket]: the window's counts
+  const int R = (n + ACC_SORT_WARPS - 1) / ACC_SORT_WARPS, steps = (R + 31) / 32;
+  int32_t *m = meta + (size_t)pw * ACC_META_INTS;
+  blk.each([&](int t, G1Proj &) {
+    for (int k = t; k < ACC_SORT_WARPS * MSM_BUCKETS; k += blk.B) cnt[k] = 0;
+  });
+  blk.sync();
+  blk.each([&](int t, G1Proj &) {
+    const int v = t / 32;
+    for (int o = t % 32; o < R && v * R + o < n; o += 32) {
+      const int d = acc_digit(std_bytes, n, pw, v * R + o);
+      if (d) acc_inc(cnt + v * MSM_BUCKETS + d);
+    }
+  });
+  blk.sync();
+  blk.each([&](int t, G1Proj &) {
+    if (t >= MSM_BUCKETS) return;
+    int c = 0;
+    for (int v = 0; v < ACC_SORT_WARPS; v++) c += cnt[v * MSM_BUCKETS + t];
+    tot[t] = c;
+  });
+  blk.sync();
+  blk.each([&](int t, G1Proj &) {
+    if (t > MSM_BUCKETS) return;
+    int first = 0, piece = 0, extra = 0, most = 0;
+    for (int e = 0; e < t; e++) {
+      const int q = (tot[e] + L - 1) / L;
+      first += tot[e];
+      piece += q;
+      extra += q > 0 ? q - 1 : 0;
+      most = q > most ? q : most;
+    }
+    m[t] = first;
+    m[ACC_META + t] = piece;
+    m[2 * ACC_META + t] = extra;
+    if (t == MSM_BUCKETS) {
+      m[3 * ACC_META] = most;
+      return;
+    }
+    if (tot[t] == 0) {
+      G1Proj o;
+      g1_set_identity(o);
+      msm_st(buckets + ((size_t)pw * MSM_BUCKETS + t) * MSM_PT, o);
+    }
+    for (int v = 0; v < ACC_SORT_WARPS; v++) {
+      const int c = cnt[v * MSM_BUCKETS + t];
+      cnt[v * MSM_BUCKETS + t] = first;
+      first += c;
+    }
+  });
+  blk.sync();
+  int32_t *list = idx + (size_t)pw * n;
+  for (int s = 0; s < steps; s++)
+    blk.each([&](int t, G1Proj &) {
+      const int v = t / 32, l = t % 32, o = s * 32 + l;
+      const int d = o < R && v * R + o < n ? acc_digit(std_bytes, n, pw, v * R + o) : 0;
+      int *off = cnt + v * MSM_BUCKETS + d;
+#ifdef __CUDA_ARCH__
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      const int rank = __popc(peers & ((1u << l) - 1));
+      if (d) list[*off + rank] = v * R + o;
+      __syncwarp();
+      if (d && rank == 0) *off += __popc(peers);
+      __syncwarp();
+#else
+      if (d) list[(*off)++] = v * R + o;
+#endif
+    });
+}
+
+// The bucket of piece s of a window whose piece offsets are pst (0 <= s <
+// pst[MSM_BUCKETS]): the b with pst[b] <= s < pst[b + 1].
+ZK_HD int acc_piece_bucket(const int32_t *pst, int s) {
+  int lo = 0, hi = MSM_BUCKETS - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (pst[mid] <= s) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Where piece j of bucket b of window pw (offset tables m) is kept: piece 0
+// in the bucket's slot of the output, piece j >= 1 among the window's XS
+// extra points.
+ZK_HD uint32_t *acc_piece_at(uint32_t *buckets, uint32_t *extra, const int32_t *m, int pw, int b,
+                             int j, int XS) {
+  return j == 0 ? buckets + ((size_t)pw * MSM_BUCKETS + b) * MSM_PT
+                : extra + ((size_t)pw * XS + m[2 * ACC_META + b] + j - 1) * MSM_PT;
+}
+
+// Piece s of window pw (m: its offset tables; pst: a copy of its piece
+// offsets, m + ACC_META): the sum of the piece's points, stored where
+// acc_piece_at keeps it.
+ZK_HD void msm_acc_piece(const uint32_t *bx, const uint32_t *by, const int32_t *idx,
+                         const int32_t *m, const int32_t *pst, uint32_t *buckets,
+                         uint32_t *extra, int pw, int s, int n, int XS) {
+  if (s >= pst[MSM_BUCKETS]) return;
+  const int b = acc_piece_bucket(pst, s), q = pst[b + 1] - pst[b], j = s - pst[b];
+  const int c = m[b + 1] - m[b];
+  const int lo = m[b] + (int)((long long)c * j / q), hi = m[b] + (int)((long long)c * (j + 1) / q);
+  const int32_t *list = idx + (size_t)pw * n;
+  G1Proj acc;
+  int i = list[lo];
+  ld_fp(acc.x, bx + (size_t)i * 8);
+  ld_fp(acc.y, by + (size_t)i * 8);
+  for (int k = 0; k < 8; k++) acc.z[k] = Fq::one(k);
+  for (int e = lo + 1; e < hi; e++) {
+    i = list[e];
+    uint32_t x[8], y[8];
+    ld_fp(x, bx + (size_t)i * 8);
+    ld_fp(y, by + (size_t)i * 8);
+    g1_madd(acc, acc, x, y);
+  }
+  msm_st(acc_piece_at(buckets, extra, m, pw, b, j, XS), acc);
+}
+
+// The merge level at stride h for piece s of window pw (m, pst as for
+// msm_acc_piece): a piece j with j % 2h == 0 adds piece j + h, if below its
+// bucket's q, into its own.
+ZK_HD void msm_acc_merge(const int32_t *m, const int32_t *pst, uint32_t *buckets, uint32_t *extra,
+                         int pw, int s, int h, int XS) {
+  if (s >= pst[MSM_BUCKETS]) return;
+  const int b = acc_piece_bucket(pst, s), q = pst[b + 1] - pst[b], j = s - pst[b];
+  if (j % (2 * h) != 0 || j + h >= q) return;
+  uint32_t *at = acc_piece_at(buckets, extra, m, pw, b, j, XS);
+  G1Proj r, v;
+  msm_ld(r, at);
+  msm_ld(v, acc_piece_at(buckets, extra, m, pw, b, j + h, XS));
+  msm_add(r, v);
+  msm_st(at, r);
 }

@@ -22,11 +22,24 @@
 //   the lane then spills about 150 bytes: 256 threads (185 registers, 8
 //   warps) and 384 took 24 % and 7 % longer.  Rows are indexed with 32 bits
 //   by a shift and a mask (n a power of two).
-// scan_proj_reduce replaces _scan_proj_kernel (:215): one thread per output
-//   lane sums S consecutive projective points.  Bound: operations (12 products
-//   per addition against 96 B per point).
+// scan_proj_reduce replaces _scan_proj_kernel (:215): block t folds the S
+//   consecutive projective points t*S .. t*S + S - 1 (S a power of two up to
+//   512) to output t.  Bound: operations (12 products per addition against
+//   96 B per point).  The TPU's two running sums per output made each S = 32
+//   round 17 additions deep on one thread; at 512, 16 and 8 outputs the last
+//   rounds ran a few hundred threads on 132 SMs, and a launch took the same
+//   ~0.58 ms whatever its width: its time is the depth in additions.  Here
+//   the sum is fb_fold's halving tree spread over the block's threads
+//   (fb_fold_tile, shared with fixed_base_query.cu's fb_fold_kernel), about
+//   9 additions deep per 512 points, and the rounds are tiles of up to 512
+//   (msm/fixed_base.py::fold_tiles): at P = 8 MSMs of 65,536 points, 1024
+//   blocks of 512 points then 8 of 128, 2 launches about 16 additions deep
+//   instead of 4 launches about 52 deep.  Its own __global__, so that a
+//   profile keeps its time apart from fb_fold's.
 #include <cuda_runtime.h>
 
+#include "fixed_base_query.cuh"
+#include "launch.cuh"
 #include "scan_reduce.cuh"
 
 namespace {
@@ -42,13 +55,16 @@ scan_leaf_reduce_kernel(const uint32_t *__restrict__ ax, const uint32_t *__restr
   if (t < (unsigned)lanes) scan_leaf_lane(ax, ay, digits, ox, oy, oz, (int)t, K, lg_n, S);
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(FB_FOLD_THREADS, 2)
 scan_proj_reduce_kernel(const uint32_t *__restrict__ X, const uint32_t *__restrict__ Y,
                         const uint32_t *__restrict__ Z, uint32_t *__restrict__ oX,
-                        uint32_t *__restrict__ oY, uint32_t *__restrict__ oZ, long long lanes,
-                        int S) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < lanes) scan_proj_lane(X, Y, Z, oX, oY, oZ, t, S);
+                        uint32_t *__restrict__ oY, uint32_t *__restrict__ oZ, int S) {
+  extern __shared__ uint4 proj_smem[];  // three planes of S / 2 points
+  uint32_t *sX = reinterpret_cast<uint32_t *>(proj_smem);
+  uint32_t *sY = sX + (S / 2) * 8, *sZ = sY + (S / 2) * 8;
+  FoldBlock blk;
+  blk.B = (int)blockDim.x;
+  fb_fold_tile(blk, X, Y, Z, sX, sY, sZ, oX, oY, oZ, (long long)blockIdx.x, S);
 }
 
 unsigned blocks_for(long long lanes, int threads) {
@@ -78,12 +94,15 @@ extern "C" int scan_leaf_reduce_launch(const void *ax, const void *ay, const voi
   return (int)cudaGetLastError();
 }
 
-// lanes output points, each the sum of S consecutive input points.
+// lanes output points, each the sum of S consecutive input points (S a
+// power of two from 2 to FB_FOLD_TILE), one block each.
 extern "C" int scan_proj_reduce_launch(const void *X, const void *Y, const void *Z, void *oX,
                                        void *oY, void *oZ, long long lanes, int S, void *stream) {
-  if (lanes < 1 || !pow2(S)) return (int)cudaErrorInvalidValue;
-  scan_proj_reduce_kernel<<<blocks_for(lanes, 128), 128, 0, (cudaStream_t)stream>>>(
+  if (lanes < 1 || lanes >= (1LL << 31) || S < 2 || S > FB_FOLD_TILE || !pow2(S))
+    return (int)cudaErrorInvalidValue;
+  const int B = fold_threads((const void *)scan_proj_reduce_kernel, lanes, S, FB_FOLD_THREADS);
+  scan_proj_reduce_kernel<<<(unsigned)lanes, B, (size_t)S * 48, (cudaStream_t)stream>>>(
       (const uint32_t *)X, (const uint32_t *)Y, (const uint32_t *)Z, (uint32_t *)oX,
-      (uint32_t *)oY, (uint32_t *)oZ, lanes, S);
+      (uint32_t *)oY, (uint32_t *)oZ, S);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,16 @@
-// Per-lane arithmetic of the chain MSM's scan reductions over BN254 G1 (the
-// rounds of msm/fixed_base.py::reduce_leaves), as __host__ __device__ code on
-// top of fixed_base.cuh.
+// Per-lane arithmetic of the chain MSM's leaf round over BN254 G1 (the first
+// round of msm/fixed_base.py::reduce_leaves), as __host__ __device__ code on
+// top of fixed_base.cuh.  (Its projective rounds are fb_fold_tile, of
+// fixed_base_query.cuh.)
 //
-// A lane sums S points (S a power of two) by two interleaved running sums,
-// the TPU kernels' IL = 2: points s = 0, 2, 4, ... into sum 0 and s = 1, 3,
+// A lane sums S leaves (S a power of two) by two interleaved running sums,
+// the TPU kernel's IL = 2: leaves s = 0, 2, 4, ... into sum 0 and s = 1, 3,
 // 5, ... into sum 1, each starting from the identity; then sum 0 + sum 1.  For
 // S = 1 there is one sum.  That order makes the outputs equal the TPU kernel
-// bodies' limb for limb.  The kernels of scan_reduce.cu run one lane per
-// thread through these functions; g++ compiles the same functions for the CPU
-// test suite (tests/test_torch_field.py).  Elements are 8 x 32-bit
-// little-endian limbs in Fq Montgomery form.
+// body's limb for limb.  scan_leaf_reduce_kernel runs one lane per thread
+// through scan_leaf_lane; g++ compiles the same function for the CPU test
+// suite (tests/test_torch_field.py, tests/test_torch_chain_msm.py).  Elements
+// are 8 x 32-bit little-endian limbs in Fq Montgomery form.
 #pragma once
 
 #include "fixed_base.cuh"
@@ -78,32 +79,4 @@ ZK_HD void scan_leaf_lane(const uint32_t *ax, const uint32_t *ay, const int32_t 
   st_fp(ox + (size_t)t * 8, a0.x);
   st_fp(oy + (size_t)t * 8, a0.y);
   st_fp(oz + (size_t)t * 8, a0.z);
-}
-
-// Projective point e of (X, Y, Z) added to `acc` by RCB Alg. 7.
-ZK_HD void scan_proj_add(G1Proj &acc, const uint32_t *X, const uint32_t *Y, const uint32_t *Z,
-                         long long e) {
-  G1Proj q;
-  ld_fp(q.x, X + e * 8);
-  ld_fp(q.y, Y + e * 8);
-  ld_fp(q.z, Z + e * 8);
-  g1_padd(acc, acc, q);
-}
-
-// scan_proj_reduce, lane t: the sum of the S consecutive projective points
-// t * S .. t * S + S - 1 of (X, Y, Z) into element t of (oX, oY, oZ).
-ZK_HD void scan_proj_lane(const uint32_t *X, const uint32_t *Y, const uint32_t *Z, uint32_t *oX,
-                          uint32_t *oY, uint32_t *oZ, long long t, int S) {
-  const long long e0 = t * S;
-  G1Proj a0, a1;
-  g1_set_identity(a0);
-  g1_set_identity(a1);
-  for (int s = 0; s < S; s += 2) {
-    scan_proj_add(a0, X, Y, Z, e0 + s);
-    if (S > 1) scan_proj_add(a1, X, Y, Z, e0 + s + 1);
-  }
-  if (S > 1) g1_padd(a0, a0, a1);
-  st_fp(oX + t * 8, a0.x);
-  st_fp(oY + t * 8, a0.y);
-  st_fp(oZ + t * 8, a0.z);
 }

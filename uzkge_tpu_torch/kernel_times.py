@@ -1,8 +1,9 @@
 """Times ntt_pass and fb_pair_combine at the shapes of the 52-card proof on
 one CUDA card, with fb_fold and fq_batch_inv at a P = 8 query's shapes
 beside them, the table build's curve kernels, the table build and
-msm_chain, msm_bucket_reduce and scan_leaf_reduce at the proof's batches,
-and prints one JSON line.
+msm_chain, msm_bucket_reduce, scan_leaf_reduce, the chain's projective
+rounds and msm_bucket_accumulate at the proof's batches, and prints one JSON
+line.
 
     python3 uzkge_tpu_torch/kernel_times.py [--root DIR] [--reps N] [--only GROUPS]
 
@@ -28,13 +29,28 @@ card; each builds its own kernels.  The shapes:
     16384, seeded random scalars, the 52-card Lagrange bases), events and
     the device's busy time in one profiled call;
   * msm_bucket_reduce at the variable-base proof's four batches (P = 8, 1,
-    5, 2 at n = 16384, K from pick_chunks: 64, 512, 128, 256), summed per
-    proof, on random canonical buckets; scan_leaf_reduce at P = 8, 5, 2, 1
-    (n = 16384, K = 2^21 leaves, S = 32) on a random chain and the signed
-    base-4 digits of seeded random scalars (a quarter of them zero, as in
-    msm_chain), summed over P = 8, 1, 5, 2 as the group proof calls it.
+    5, 2 at n = 16384, the chunks the package's accumulate hands it: one
+    here, a parent's pick_chunks 64, 512, 128, 256), summed per proof, on
+    random canonical buckets; scan_leaf_reduce at P = 8, 5, 2, 1 (n =
+    16384, K = 2^21 leaves, S = 32) on a random chain and the signed base-4
+    digits of seeded random scalars (a quarter of them zero, as in
+    msm_chain), summed over P = 8, 1, 5, 2 as the group proof calls it;
+  * proj: msm_chain's projective rounds, as the package's reduce_leaves
+    runs them (here fold_tiles: 512, 128; a parent's pick_s: 32, 32, 32,
+    2), on random points of the leaf round's output size (P * 65,536), at
+    P = 8, 1, 5, 2, summed per group proof;
+  * acc: msm_bucket_accumulate (here at pick_piece's L, a parent's at
+    pick_chunks' K) and msm_bucket_reduce on its buckets, at P = 8, 1, 5, 2
+    (n = 16384, random bases), on dense random scalars (per proof sums) and
+    on skewed rows (all ones, all zero, below 2^16, one scalar repeated,
+    mostly zero, in turn), with the peak device memory of the two beyond
+    their inputs (the Pippenger's scratch);
+  * accsweep (this package only, not in the default): msm_bucket_accumulate
+    at P = 8, 1, 5, 2 on dense scalars and at P = 8 on skewed rows, at piece
+    lengths L of 4 .. 62, and the device time of its sort, piece and merge
+    kernels apart at pick_piece's L (how ACC_PIECE_MAX was chosen).
 --only takes a comma list of the groups ntt, combine, query, table, reduce,
-leaf (default: all).
+leaf, proj, acc, accsweep (default: all but accsweep).
 Times are CUDA-event means over --reps launches after a warm-up (for a small
 launch they include the host's time between launches), and beside them the
 kernels' device time from torch.profiler (keys *_device); inputs are
@@ -201,7 +217,7 @@ def reduce_and_leaf(out, dev, reps, groups):
         out["msm_bucket_reduce"], out["msm_bucket_reduce_device"] = {}, {}
         total = dtotal = 0.0
         for P in QUERY_BATCHES:
-            K = M.pick_chunks(n, P, dev)
+            K = M.pick_chunks(n, P, dev) if hasattr(M, "pick_chunks") else 1
             buckets = rand(dev, P, K, M.N_WINDOWS, M.N_BUCKETS, 3)
             key = f"P={P} K={K}"
             t = cuda_ms(lambda: M.msm_bucket_reduce(buckets), reps)
@@ -237,11 +253,144 @@ def reduce_and_leaf(out, dev, reps, groups):
         out["scan_leaf_reduce_device_per_proof"] = dtotal
 
 
+def skewed_std(dev, P: int, n: int, g):
+    """(P, n, 8) standard-form scalars, rows of five skewed kinds in turn:
+    all ones, all zero, below 2^16, one scalar repeated, mostly zero (a tenth
+    below 16)."""
+    import torch
+
+    std = torch.zeros((P, n, 8), dtype=torch.int32, device=dev)
+    for p in range(P):
+        kind = p % 5
+        if kind == 0:
+            std[p, :, 0] = 1
+        elif kind == 2:
+            std[p, :, 0] = torch.randint(0, 1 << 16, (n,), device=dev, generator=g)
+        elif kind == 3:
+            std[p] = rand(dev, 1)[0]
+        elif kind == 4:
+            small = torch.randint(0, 16, (n,), device=dev, generator=g)
+            keep = torch.rand(n, device=dev, generator=g) < 0.1
+            std[p, :, 0] = torch.where(keep, small, 0).to(torch.int32)
+    return std
+
+
+def proj_and_acc(out, dev, reps, groups):
+    """The proj and acc groups (the module docstring's last two items) into
+    `out`, those among ("proj", "acc") in `groups`."""
+    import torch
+
+    from uzkge_tpu_torch.msm import fixed_base as fb
+    from uzkge_tpu_torch.msm import msm as M
+
+    n = 16384
+    if "proj" in groups:
+        K = 128 * n  # msm_chain's leaves per MSM (c = 2, bits = 256)
+        per = K // fb.pick_s(K)
+        if "fold_tiles" in fb.reduce_leaves.__code__.co_names:
+            widths = fb.fold_tiles(per)
+        else:  # a parent's rounds of pick_s
+            widths, left = [], per
+            while left > 1:
+                widths.append(fb.pick_s(left))
+                left //= widths[-1]
+        out["proj_widths"] = widths
+        out["scan_proj_rounds"], out["scan_proj_rounds_device"] = {}, {}
+        total = dtotal = 0.0
+        for P in QUERY_BATCHES:
+            pts = tuple(rand(dev, P * per) for _ in range(3))
+
+            def rounds(pts=pts):
+                X, Y, Z = pts
+                for S in widths:
+                    X, Y, Z = fb.scan_proj_reduce(X, Y, Z, S)
+                return X
+
+            t = cuda_ms(rounds, reps)
+            d = device_ms(rounds, "scan_proj_reduce_kernel", reps)
+            out["scan_proj_rounds"][f"P={P}"], out["scan_proj_rounds_device"][f"P={P}"] = t, d
+            total += t
+            dtotal += d
+            del pts
+        out["scan_proj_rounds_per_proof"] = total
+        out["scan_proj_rounds_device_per_proof"] = dtotal
+    if "acc" in groups:
+        bx, by = rand(dev, n), rand(dev, n)
+        g = torch.Generator(device=dev).manual_seed(12)
+        for kind in ("dense", "skewed"):
+            acc, accd, red, redd, scratch = {}, {}, {}, {}, {}
+            for P in QUERY_BATCHES:
+                if kind == "dense":
+                    std = torch.randint(-(1 << 31), 1 << 31, (P, n, 8), dtype=torch.int32,
+                                        device=dev, generator=g)
+                    std[..., 7] &= 0x0FFFFFFF
+                else:
+                    std = skewed_std(dev, P, n, g)
+                if hasattr(M, "pick_piece"):
+                    arg, key = M.pick_piece(n, P, dev), f"P={P} L={M.pick_piece(n, P, dev)}"
+                else:
+                    arg, key = M.pick_chunks(n, P, dev), f"P={P} K={M.pick_chunks(n, P, dev)}"
+
+                def accumulate(std=std, arg=arg):
+                    return M.msm_bucket_accumulate(bx, by, std, arg)
+
+                acc[key] = cuda_ms(accumulate, reps)
+                accd[key] = device_ms(accumulate, "msm_bucket_accumulate", reps)
+                buckets = accumulate()
+                red[key] = cuda_ms(lambda: M.msm_bucket_reduce(buckets), reps)
+                redd[key] = device_ms(lambda: M.msm_bucket_reduce(buckets),
+                                      "msm_bucket_reduce_kernel", reps)
+                del buckets
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                M.msm_bucket_reduce(accumulate())
+                torch.cuda.synchronize()
+                scratch[key] = torch.cuda.max_memory_allocated() - held
+            out[f"acc_{kind}"], out[f"acc_{kind}_device"] = acc, accd
+            out[f"acc_{kind}_reduce"], out[f"acc_{kind}_reduce_device"] = red, redd
+            out[f"acc_{kind}_scratch_bytes"] = scratch
+            for name, vals in (("acc", acc), ("acc_device", accd), ("reduce", red),
+                               ("reduce_device", redd)):
+                out[f"acc_{kind}_{name}_per_proof"] = sum(vals.values())
+
+
+def acc_sweep(out, dev, reps):
+    """The accsweep group (the module docstring's last item) into `out`."""
+    import torch
+
+    from uzkge_tpu_torch.msm import msm as M
+
+    n = 16384
+    bx, by = rand(dev, n), rand(dev, n)
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    for P in QUERY_BATCHES:
+        std = torch.randint(-(1 << 31), 1 << 31, (P, n, 8), dtype=torch.int32, device=dev,
+                            generator=g)
+        std[..., 7] &= 0x0FFFFFFF
+        rows[f"dense P={P}"] = std
+    rows["skewed P=8"] = skewed_std(dev, 8, n, g)
+    sweep, split = {}, {}
+    for label, std in rows.items():
+        P = std.shape[0]
+        L0 = M.pick_piece(n, P, dev)
+        for L in sorted({4, 8, 12, 16, 24, 32, 62, L0}):
+            sweep[f"{label} L={L}"] = device_ms(lambda: M.msm_bucket_accumulate(bx, by, std, L),
+                                                "msm_bucket_accumulate", reps)
+        for part in ("sort", "piece", "merge"):
+            split[f"{label} L={L0} {part}"] = device_ms(
+                lambda: M.msm_bucket_accumulate(bx, by, std, L0),
+                f"msm_bucket_accumulate_{part}_kernel", reps)
+    out["acc_sweep_device"], out["acc_split_device"] = sweep, split
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", default="ntt,combine,query,table,reduce,leaf")
+    ap.add_argument("--only", default="ntt,combine,query,table,reduce,leaf,proj,acc")
     args = ap.parse_args()
     groups = set(args.only.split(","))
     import torch
@@ -305,6 +454,9 @@ def main():
     if "table" in groups:
         table_and_chain(out, dev, args.reps)
     reduce_and_leaf(out, dev, args.reps, groups)
+    proj_and_acc(out, dev, args.reps, groups)
+    if "accsweep" in groups:
+        acc_sweep(out, dev, args.reps)
     print(json.dumps(out))
 
 

@@ -47,8 +47,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # x, y, tw, pre, post, cst, out, S, IN, stream
     "ntt_pass_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # bx, by, std, buckets, P, n, K, stream
-    "msm_bucket_accumulate_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # bx, by, std, buckets, idx, meta, extra, P, n, L, stream
+    "msm_bucket_accumulate_launch": [_P] * 7 + [_I, _I, _I, _P],
+    # n, L (not a launch: the accumulate's extra points a window)
+    "msm_bucket_accumulate_extra": [_I, _I],
     # buckets, out, part, done, P, K, stream
     "msm_bucket_reduce_launch": [_P, _P, _P, _P, _I, _I, _P],
     # K (not a launch: the reduce's scratch points a window)

@@ -53,11 +53,15 @@ w*n + i reading chain row (2w + |d| - 1)*n + i, in rounds of two kernels
   * scan_leaf_reduce: per (MSM, lane), the sum of S consecutive leaves read
     straight from the chain by their digits (the TPU's _scan_leaf_kernel,
     after the gather that msm_chain does there in XLA);
-  * scan_proj_reduce: per lane, the sum of S consecutive projective points
-    (_scan_proj_kernel), round after round down to one point per MSM.
+  * scan_proj_reduce: per tile of up to FOLD_TILE consecutive projective
+    points, their sum by fb_fold's halving trees, a block per tile
+    (_scan_proj_kernel, whose running sums of S <= 32 points took twice the
+    rounds), round after round down to one point per MSM.
 
-Both keep the TPU kernels' two interleaved running sums (even s, odd s),
-added at the end, so that their outputs equal the Pallas bodies' mod p.
+The leaf round keeps the TPU kernel's two interleaved running sums (even s,
+odd s), added at the end, so that its outputs equal the Pallas body's mod p;
+the projective rounds add in another order, so the chain's sums equal the
+TPU's as group elements (affine points), not limb for limb.
 
 Every kernel sits beside its plain torch-op version in this module; a CPU
 tensor takes the plain version, a CUDA tensor the kernel.  The group
@@ -236,12 +240,9 @@ def scan_leaf_reduce_plain(ax, ay, digits, n: int, S: int):
 
 
 def scan_proj_reduce_plain(X, Y, Z, S: int):
-    """Torch-op version of the scan_proj_reduce kernel."""
-    lanes = X.shape[0] // S
-    pts = [lift(t).view(8, lanes, S) for t in (X, Y, Z)]
-    acc = _scan_sums(S, lambda a, s: _padd_w(*a, *(t[:, :, s] for t in pts)), (lanes,),
-                     X.device)
-    return tuple(lower(t) for t in acc)
+    """Torch-op version of the scan_proj_reduce kernel: fb_fold_plain's trees
+    over tiles of S consecutive points (the kernel runs fb_fold's tile)."""
+    return tuple(t[0] for t in fb_fold_plain(X[None], Y[None], Z[None], S))
 
 
 # ------------------------------------------------------------- the kernels
@@ -491,13 +492,19 @@ def scan_leaf_reduce(ax, ay, digits, n: int, S: int):
 
 def scan_proj_reduce(X, Y, Z, S: int):
     """A projective round of the chain MSM: (N, 8) points each -> (N / S, 8),
-    element t the sum of points t*S .. t*S + S - 1."""
+    element t the sum of points t*S .. t*S + S - 1 by fb_fold's halving trees
+    (scan_proj_reduce_plain's order), S a power of two from 2 to
+    FOLD_TILE."""
     if X.dim() != 2:
         raise ValueError(f"scan_proj_reduce: X of shape {tuple(X.shape)}, want (N, 8)")
     N, dev = X.shape[0], X.device
     for t, name in ((X, "X"), (Y, "Y"), (Z, "Z")):
         kernels.check(t, name, (N, 8), dev)
     _scan_width(S, N, "scan_proj_reduce")
+    if not 2 <= S <= FOLD_TILE:
+        raise ValueError(f"scan_proj_reduce: S = {S} outside [2, {FOLD_TILE}]")
+    if N // S >= 1 << 31:
+        raise ValueError(f"scan_proj_reduce: N / S = {N // S}: one block an output, below 2^31")
     if not kernels.use_kernel(dev, "scan_proj_reduce"):
         return scan_proj_reduce_plain(X, Y, Z, S)
     out = tuple(torch.empty((N // S, 8), dtype=torch.int32, device=dev) for _ in range(3))
@@ -605,8 +612,9 @@ def _extract_host(X, Y, Z):
 
 
 def pick_s(per: int, cap: int = 32) -> int:
-    """The scan width of a round over `per` points per MSM: the largest power
-    of two <= cap dividing per (`_pick_S`)."""
+    """The leaf round's width over `per` leaves per MSM: the largest power of
+    two <= cap dividing per (`_pick_S`, which also sets the TPU's projective
+    rounds)."""
     s = 1
     while s < cap and per % (s * 2) == 0:
         s *= 2
@@ -615,17 +623,18 @@ def pick_s(per: int, cap: int = 32) -> int:
 
 def reduce_leaves(ax, ay, digits, n: int):
     """(P, K) digits over the chain (ax, ay) -> projective sums (X, Y, Z),
-    each (P, 8): one scan_leaf_reduce round, then scan_proj_reduce rounds
-    down to one point per MSM (`_reduce_leaves`).  K must be a power of
-    two."""
+    each (P, 8): one scan_leaf_reduce round (S = pick_s(K), as
+    `_reduce_leaves`), then scan_proj_reduce rounds over fold_tiles(K / S)
+    down to one point per MSM (two rounds at K / S = 65,536, the leaf
+    round's output at n = 16384).  The TPU's
+    projective rounds (running sums of S <= 32) add in another order: the
+    sums are the same group elements, their projective limbs differ.  K must
+    be a power of two."""
     K = digits.shape[1]
     S = pick_s(K)
     X, Y, Z = scan_leaf_reduce(ax, ay, digits, n, S)
-    per = K // S
-    while per > 1:
-        S = pick_s(per)
-        X, Y, Z = scan_proj_reduce(X, Y, Z, S)
-        per //= S
+    for w in fold_tiles(K // S):
+        X, Y, Z = scan_proj_reduce(X, Y, Z, w)
     return X, Y, Z
 
 

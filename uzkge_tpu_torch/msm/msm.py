@@ -7,12 +7,16 @@ called from `KZGCommitmentScheme::commit`): Pippenger with window c = 8, so
 The device half of `_msm_device` is two hand-written CUDA kernels
 (csrc/msm.cu), each beside its plain torch-op version in this module:
 
-  * msm_bucket_accumulate: per (batch p, chunk k, window w) lane, the
-    buckets of chunk k's points (the TPU's 512-step lax.scan);
+  * msm_bucket_accumulate: the sum of each (batch p, window w, bucket)'s
+    points (the TPU's 512-step lax.scan over chunks of the points, with no
+    chunk left to fold): a counting sort of each window's points by digit,
+    a thread per piece of at most L points of one bucket, a binary tree
+    over a bucket's pieces, one launch a level (csrc/msm.cuh, "The
+    accumulate");
   * msm_bucket_reduce: the chunk fold and the weighted bucket sum
     sum_b b*B_b per (p, w) (the TPU's fold tree and 255-step scan), each
     window over several blocks whose threads fold slices of the chunks
-    (csrc/msm.cuh).
+    (csrc/msm.cuh); the accumulate hands it one chunk.
 
 The 32 window sums of each MSM are combined on the host
 (`_window_sums_to_points`), as in the JAX package.  Results are affine host
@@ -32,7 +36,9 @@ C_BITS = 8
 N_WINDOWS = 32
 N_BUCKETS = 1 << C_BITS
 HOST_MSM_MAX = 512  # below this many points a host Pippenger wins outright
-LANES_TARGET = 16384  # (p, k, w) lanes that keep the card busy
+ACC_WARPS = 16  # warps an SM the accumulate's pieces give at the least
+ACC_PIECE_MAX = 16  # points a piece at the most: a bucket of n / 256 = 64 cut 4 or 5 ways
+H100_SMS = 132  # the SMs a CPU call cuts its pieces for (the card's pieces)
 
 
 class MSMBases:
@@ -47,17 +53,19 @@ class MSMBases:
         self.points = list(points)
 
 
-def pick_chunks(n: int, P: int, device) -> int:
-    """Number of point chunks K.  On a card: start where the chunk fold
-    (P*32*256*K additions) matches the bucket walk (P*32*n), then double K
-    until P*32*K lanes fill the card, keeping >= 16 points per chunk.  On the
-    CPU the plain version runs, whose fold is the costly part: few chunks."""
-    if torch.device(device).type != "cuda":
-        return max(1, min(4, n // 64))
-    K = max(1, n // N_BUCKETS)
-    while P * N_WINDOWS * K < LANES_TARGET and n // (2 * K) >= 16:
-        K *= 2
-    return K
+def pick_piece(n: int, P: int, device) -> int:
+    """The accumulate's piece length L: the most points one thread sums.  At
+    most ACC_PIECE_MAX, and at most what makes P*32*n / L pieces of dense
+    digits give ACC_WARPS warps on each SM of the card (on the CPU, of an
+    H100, so that the plain version cuts the card's pieces): 16, 7, 16, 15
+    at the proof's P = 8, 1, 5, 2, n = 16384.  A piece's length varies
+    with its bucket's (each bucket is cut into equal pieces), and a warp
+    takes as long as its longest piece: many pieces a bucket keep them
+    near L.  At least 2."""
+    dev = torch.device(device)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda"
+           else H100_SMS)
+    return max(2, min(ACC_PIECE_MAX, P * N_WINDOWS * n // (ACC_WARPS * 32 * sms)))
 
 
 # ------------------------------------------------------------ plain versions
@@ -125,31 +133,58 @@ def _digits(std: torch.Tensor) -> torch.Tensor:
     return d.reshape(*std.shape[:-1], 4 * 8)
 
 
-def msm_bucket_accumulate_plain(bx, by, std, K: int):
-    """Torch-op version of the accumulate kernel: same (P, K, 32, 256, 3, 8)
-    buckets up to the projective representative (bucket 0 collects what the
-    kernel skips; the reduction never reads it)."""
+def msm_bucket_accumulate_plain(bx, by, std, L: int):
+    """Torch-op version of the accumulate kernels: (P, 1, 32, 256, 3, 8)
+    buckets, equal to theirs limb for limb.  Window pw = p*32 + w lists its
+    points by (digit, index); bucket b's c points make q = ceil(c / L)
+    pieces, piece j the entries c*j//q .. c*(j+1)//q - 1, summed from its
+    first point (x, y, 1) by mixed additions; then the tree's levels at
+    stride h = 1, 2, 4, ..., where piece j, j % 2h == 0, adds piece j + h
+    (if below q) into itself; piece 0 is the bucket, empty buckets (and
+    bucket 0) the identity.  The sort is torch's here (a plain version, not
+    on the card's path)."""
     P, n, _ = std.shape
-    Cn = (n + K - 1) // K
     dev = std.device
-    dig = _digits(std)
-    pad = K * Cn - n
-    if pad:
-        dig = torch.cat([dig, torch.zeros(P, pad, 32, dtype=dig.dtype, device=dev)], dim=1)
-    dig = dig.reshape(P, K, Cn, N_WINDOWS).permute(2, 0, 1, 3)  # (Cn, P, K, W)
-    pidx = torch.arange(K * Cn, device=dev).clamp(max=n - 1).reshape(K, Cn).T  # (Cn, K)
-    X, Y, Z = _identity_w((P, K, N_WINDOWS, N_BUCKETS), dev)
-    wx, wy = lift(bx), lift(by)  # (W, n)
-    for c in range(Cn):
-        idx = dig[c][None, ..., None].expand(W, P, K, N_WINDOWS, 1)
-        x2 = wx[:, pidx[c]][:, None, :, None]  # (W, 1, K, 1)
-        y2 = wy[:, pidx[c]][:, None, :, None]
-        X3, Y3, Z3 = _madd_w(X.gather(-1, idx)[..., 0], Y.gather(-1, idx)[..., 0],
-                             Z.gather(-1, idx)[..., 0], x2, y2)
-        X.scatter_(-1, idx, X3[..., None])
-        Y.scatter_(-1, idx, Y3[..., None])
-        Z.scatter_(-1, idx, Z3[..., None])
-    return torch.stack([lower(X), lower(Y), lower(Z)], dim=-2)
+    PW = P * N_WINDOWS
+    dig = _digits(std).transpose(1, 2).reshape(PW, n)
+    order = torch.argsort(dig * n + torch.arange(n, device=dev), dim=1).reshape(-1)
+    cnt = torch.zeros(PW, N_BUCKETS, dtype=torch.int64, device=dev)
+    cnt.scatter_add_(1, dig, torch.ones_like(dig))
+    first = (torch.cumsum(cnt, 1) - cnt).reshape(-1)  # into `order`, digit 0's first
+    cnt[:, 0] = 0
+    cnt = cnt.reshape(-1)
+    q = (cnt + L - 1) // L
+    owner = torch.repeat_interleave(torch.arange(PW * N_BUCKETS, device=dev), q)
+    pstart = torch.cumsum(q, 0) - q
+    j = torch.arange(owner.numel(), device=dev) - pstart[owner]
+    c, qo = cnt[owner], q[owner]
+    lo = first[owner] + c * j // qo
+    hi = first[owner] + c * (j + 1) // qo
+    base = (owner // N_BUCKETS) * n
+    wx, wy = lift(bx), lift(by)
+
+    def point(e):
+        i = order[base + torch.minimum(e, hi - 1)]
+        return wx[:, i], wy[:, i]
+
+    x0, y0 = point(lo)
+    acc = (x0, y0, fq.wconst(fq.const(1, dev), 2).expand_as(x0))
+    for t in range(1, int((hi - lo).max()) if owner.numel() else 0):
+        new = _madd_w(*acc, *point(lo + t))
+        acc = tuple(torch.where(lo + t < hi, v, a) for v, a in zip(new, acc))
+    S = [a.clone() for a in acc]
+    stride, top = 1, int(q.max())
+    while stride < top:
+        lead = torch.nonzero((j % (2 * stride) == 0) & (j + stride < qo)).squeeze(1)
+        new = _padd_w(*(s[:, lead] for s in S), *(s[:, lead + stride] for s in S))
+        for s, v in zip(S, new):
+            s[:, lead] = v
+        stride *= 2
+    out = _identity_w((PW * N_BUCKETS,), dev)
+    full = torch.nonzero(q).squeeze(1)
+    for o, s in zip(out, S):
+        o[:, full] = s[:, pstart[full]]
+    return torch.stack([lower(o) for o in out], dim=-2).reshape(P, 1, N_WINDOWS, N_BUCKETS, 3, 8)
 
 
 SEG = 16  # buckets per segment of the weighted sum
@@ -203,21 +238,28 @@ def msm_bucket_reduce_plain(buckets):
 # ------------------------------------------------------------- the kernels
 
 
-def msm_bucket_accumulate(bx, by, std, K: int):
+def msm_bucket_accumulate(bx, by, std, L: int):
     """Bucket accumulation.  bx, by: (n, 8) affine Fq bases; std: (P, n, 8)
-    standard-form scalars.  Returns (P, K, 32, 256, 3, 8) projective buckets."""
+    standard-form scalars; L: the piece length (pick_piece).  Returns (P, 1,
+    32, 256, 3, 8) projective buckets (one chunk for msm_bucket_reduce)."""
     P, n, _ = std.shape
     dev = std.device
     kernels.check(bx, "bx", (n, 8), dev)
     kernels.check(by, "by", (n, 8), dev)
     kernels.check(std, "std", (P, n, 8), dev)
-    if not 1 <= K <= n:
-        raise ValueError(f"msm_bucket_accumulate: K = {K} outside [1, {n}]")
+    if L < 1 or P * N_WINDOWS > 65535:
+        raise ValueError(f"msm_bucket_accumulate: L = {L}, P = {P}: want L >= 1 and "
+                         "P * 32 <= 65535 (a grid row per window)")
     if not kernels.use_kernel(dev, "msm_bucket_accumulate"):
-        return msm_bucket_accumulate_plain(bx, by, std, K)
-    buckets = torch.empty((P, K, N_WINDOWS, N_BUCKETS, 3, 8), dtype=torch.int32, device=dev)
-    kernels.launch("msm_bucket_accumulate_launch", bx.data_ptr(), by.data_ptr(),
-                   std.data_ptr(), buckets.data_ptr(), P, n, K, kernels.stream_of(std))
+        return msm_bucket_accumulate_plain(bx, by, std, L)
+    buckets = torch.empty((P, 1, N_WINDOWS, N_BUCKETS, 3, 8), dtype=torch.int32, device=dev)
+    idx = torch.empty(P * N_WINDOWS * n, dtype=torch.int32, device=dev)
+    meta = torch.empty((P * N_WINDOWS, 3 * (N_BUCKETS + 1) + 1), dtype=torch.int32, device=dev)
+    xs = kernels.library().msm_bucket_accumulate_extra(n, L)
+    extra = torch.empty((P * N_WINDOWS * xs, 3, 8), dtype=torch.int32, device=dev)
+    kernels.launch("msm_bucket_accumulate_launch", bx.data_ptr(), by.data_ptr(), std.data_ptr(),
+                   buckets.data_ptr(), idx.data_ptr(), meta.data_ptr(), extra.data_ptr(), P, n,
+                   L, kernels.stream_of(std))
     kernels.LAUNCHES["msm_bucket_accumulate"] += 1
     return buckets
 
@@ -239,14 +281,12 @@ def msm_bucket_reduce(buckets):
     return out
 
 
-def _msm_device(px, py, scalars_mont, K: int = None):
+def _msm_device(px, py, scalars_mont):
     """(n, 8) bases and (P, n, 8) Fr Montgomery scalars -> (P, 32, 3, 8)
     projective window sums."""
     P, n, _ = scalars_mont.shape
-    if K is None:
-        K = pick_chunks(n, P, scalars_mont.device)
     std = fr.from_mont(scalars_mont)
-    return msm_bucket_reduce(msm_bucket_accumulate(px, py, std, K))
+    return msm_bucket_reduce(msm_bucket_accumulate(px, py, std, pick_piece(n, P, std.device)))
 
 
 # ---------------------------------------------------------------- host side

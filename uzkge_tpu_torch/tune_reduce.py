@@ -6,12 +6,9 @@ equal to its plain version, and prints one JSON line.
 
 A variant is csrc/ copied into uzkge_tpu_torch/build/tune_reduce/<name>/
 with text edits (each target must occur once).  `this` is the source as it
-stands.  REDUCE_VARIANTS change msm_bucket_reduce: the chunks a thread folds
-where the slices allow (MSM_SLICE in msm.cuh: 64 gives T = 1, 8, 2, 4 slices
-a bucket at the proof's batches P = 8, 1, 5, 2, that is 256, 256, 320, 256
-blocks of 256 threads; 16 gives T = 4, 8, 8, 8 and 1024, 256, 1280, 512
-blocks), or its additions' products in lockstep pairs (`padd_ls2`: a
-lockstep g1_padd added to the copy's field.cuh).  LEAF_VARIANTS change
+stands.  REDUCE_VARIANTS change msm_bucket_reduce: its additions' products
+in lockstep pairs (`padd_ls2`: a lockstep g1_padd added to the copy's
+field.cuh).  LEAF_VARIANTS change
 scan_leaf_reduce: its block (LEAF_THREADS), its mixed addition in lockstep
 form at width 1 or 2 (g1_madd_ls), the next nonzero leaf's digit and row
 loaded before the current addition (`prefetch`), or the walk over all S
@@ -21,9 +18,9 @@ no mask and no selects (`all_leaves`, the earlier lane with 32-bit rows; at
 For each variant:
   * ptxas's registers, stack and spill bytes of both kernels (-Xptxas -v);
   * the times (CUDA events, mean of --reps launches after a warm-up) of
-    msm_bucket_reduce at n = 16384's four batches (P, K) = (8, 64), (1,
-    512), (5, 128), (2, 256) on the accumulate kernel's buckets of random
-    scalars over the 52-card Lagrange bases, each variant's window sums
+    msm_bucket_reduce at n = 16384's four batches P = 8, 1, 5, 2 on the
+    accumulate kernels' buckets of random scalars over the 52-card Lagrange
+    bases (one chunk, K = 1, since the accumulate sums each bucket itself), each variant's window sums
     equal to the plain version's as affine points (`this` and the reduce
     variants); and of scan_leaf_reduce at P = 8, 5, 2, 1 (n = 16384, K =
     2^21, S = 32) on a random chain and the signed base-4 digits of random
@@ -153,8 +150,6 @@ def _threads(t: int):
 
 # name: text edits (file, old or a function of the file's text giving it, new)
 REDUCE_VARIANTS = {
-    "slice32": [("msm.cuh", "MSM_SLICE = 64;", "MSM_SLICE = 32;")],
-    "slice16": [("msm.cuh", "MSM_SLICE = 64;", "MSM_SLICE = 16;")],
     "padd_ls2": [("field.cuh", _MADD_LS, _PADD_LS + _MADD_LS),
                  ("msm.cuh", "g1_padd(r, r, q)", "g1_padd_ls<2>(r, r, q)")],
 }
@@ -263,8 +258,9 @@ def main():
     cases = []  # (label, variants, run(lib) -> outputs, check(outputs) -> bool)
     bases = M.MSMBases(load_srs(n, dev)._lagrange_points, dev)
     for P in (8, 1, 5, 2):
-        K = M.pick_chunks(n, P, dev)
-        buckets = M.msm_bucket_accumulate(bases.x, bases.y, fr.from_mont(scalars(P)), K)
+        buckets = M.msm_bucket_accumulate(bases.x, bases.y, fr.from_mont(scalars(P)),
+                                          M.pick_piece(n, P, dev))
+        K = buckets.shape[1]
         want = M._window_sums_to_points(
             M.msm_bucket_reduce_plain(buckets).cpu().reshape(-1, 1, 3, 8))
         res = torch.empty((P, M.N_WINDOWS, 3, 8), dtype=torch.int32, device=dev)
