@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-The seed is the one the golden digest was made with
-(tests/data/torch_golden.json, key "52").
+The seeds are the ones the golden digests were made with
+(tests/data/torch_golden.json, keys "52" and "mm50").
 
 Phases, any failure exits nonzero:
   1. device check: a CUDA card is required (never falls back to the CPU);
@@ -90,7 +90,33 @@ Phases, any failure exits nonzero:
      sharded_ntt_batch; the same sha256, both scan kernels launched, neither
      the table nor the Pippenger used; its stage times beside the
      fixed-base proof's; that proof profiled too;
-  7. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
+  7. the matchmaking path: zmatchmaking's 50-player proof, the generic
+     TurboPLONK shape (n = 8192, m = 65536), through its entry points:
+     gen_matchmaking_prover_params(50) on the card, where the embedded vk
+     must be refused as stale (8 selector commitments) and the circuit
+     re-indexed, and the n = 8192 table built (fb_bases and fb_mult_chunk
+     launched), timed; prove_matchmaking with random.Random(seed) on
+     seeded_match's players, committed seed and random number: the outputs a
+     permutation of the inputs, verify_matchmaking accepts the proof and
+     rejects it with two outputs swapped, its sha256 the JAX package's
+     (key "mm50"), every fixed-base proof kernel launched; a profiled proof;
+     the same proof through a fixed_base=False KZG from the same rng state,
+     the same sha256, both Pippenger kernels launched, profiled too; both
+     routes' stages side by side; ntt_pass at every shape the proof launched
+     (those new to it logged) against its plain version, timed; sampled rows
+     of the n = 8192 table against host multiples; the table build's four
+     kernels at its shapes (n = 8192, W = 32, K = 262,144, CH = 16) against
+     their plain versions, timed, with their bounds, and a second build
+     profiled (each kernel's device time); the query's kernels and
+     the Pippenger's at the proof's batches (P = 5, 1, 2 at n = 8192) against
+     their plain versions, timed, with their bounds summed over one proof;
+     the params cache's round trip of the matchmaking params on the card;
+  8. the SDK's hex game flow for 52 cards and four players on phase 4's
+     prover params (handed over through the SDK's params table: no second
+     set-up), from keypairs to unmask_card, every check of the flow passing
+     and the revealed indices the deck's 52; its per-card host arithmetic in
+     8 spawned processes;
+  9. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
      bound worked out from this run's shapes and what bounds it, and the time
      of one PyTorch call computing the same function where there is one:
      only fb_select's gather; no PyTorch call computes a BN254 NTT, MSM,
@@ -103,8 +129,15 @@ Phases, any failure exits nonzero:
      per-proof bound summed likewise (proof_bound_ms); the Pippenger's two
      likewise over its four batches (the accumulate with its scratch bytes); the Pippenger's kernels give their
      proof_ms from the variable-base proof's profile, the scan kernels from
-     the group proof's; the card line, and
-     last the contract line
+     the group proof's; per kernel too its numbers on the matchmaking proof:
+     mm_launches, mm_setup_launches, mm_proof_ms (its profile) and, at the
+     proof's shapes, mm_events_ms, mm_plain_ms, mm_bound_ms (fb_bases and
+     fb_mult_chunk: at the n = 8192 table build's, their only use there);
+     the four build kernels also mm_setup_ms, their device time in the
+     profiled n = 8192 build, and fp_mont_mul and fq_batch_inv
+     mm_setup_events_ms, mm_setup_plain_ms, mm_setup_bound_ms at the build's
+     shapes; the card line,
+     and last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The scan kernels' times are per msm_chain call of P = 8 MSMs, scan_proj_reduce
@@ -867,9 +900,10 @@ def fixed_base_path(dev, rng):
 
 
 def check_fixed_base_full(dev, tbl, rate, errs):
-    """Each fixed-base kernel at the shapes of the table build (n = 16384,
-    W = 32, K = 524288, CH = 16) against its plain version, timed beside it;
-    the build's launches are already counted, so these are not."""
+    """Each fixed-base kernel at the shapes of tbl's build (phase 5: n =
+    16384, W = 32, K = 524288, CH = 16; phase 7: n = 8192, K = 262144)
+    against its plain version, timed beside it; the build's launches are
+    already counted, so these are not."""
     from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul, fp_mont_mul_plain
     from uzkge_tpu_torch.ff.field import fq, fr
     from uzkge_tpu_torch.msm import fixed_base as fb
@@ -911,7 +945,7 @@ def check_fixed_base_full(dev, tbl, rate, errs):
     return res
 
 
-def device_profile(fn):
+def device_profile(fn, warm=None):
     """fn() once under torch.profiler.  Returns the wall seconds of fn
     (profiler on), the device-side events (kernels, memcpys, memsets) and the
     busy seconds, the union of their intervals, so that an operator and the
@@ -919,13 +953,23 @@ def device_profile(fn):
     the profiler recorded no device event.  A one-element kernel and a pause
     come first, outside the wall (its microseconds count as busy): in one
     run on the card, a profile taken after an earlier one in the same
-    process lost its first few device events."""
+    process lost its first few device events.  Given `warm`, warm() runs
+    first under the profiler, then a spin kernel as a marker, and only the
+    events that start after the marker are kept: in the smoke run the
+    profiled table build, whose device work starts at once, lost its first
+    ~10 ms of events (fb_bases never showed), which a standalone run of the
+    same build did not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
+        if warm is not None:
+            warm()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1_000_000)  # the marker, ~0.5 ms
+            torch.cuda.synchronize()
         time.sleep(0.1)
         t0 = time.perf_counter()
         fn()
@@ -934,6 +978,11 @@ def device_profile(fn):
     events = [(ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
               if ev.device_type == DeviceType.CUDA
               and not getattr(ev, "is_user_annotation", False)]
+    if warm is not None:
+        marks = [hi for _, hi, name in events if "spin_kernel" in name]
+        if not marks:
+            return wall, None, None
+        events = [e for e in events if e[0] >= marks[-1]]
     if not events:
         return wall, None, None
     busy_us, end = 0.0, float("-inf")
@@ -989,64 +1038,105 @@ def log_device_time(events, top: int):
 
 
 def profile_prove(seed, pp, kzg, joint, deck, latency, name):
-    """One more proof through `kzg` (the route `name`) under torch.profiler.
-    The idle share is taken against the profiled proof's wall time (profiler
-    on); busy time over the unprofiled latency is printed beside it.
-    Returns log_port_kernels' sums, or {} when the profiler recorded no
-    device event."""
+    """One more 52-card proof through `kzg` (the route `name`) under
+    torch.profiler (profile_fn)."""
     from uzkge_tpu_torch.shuffle import app
 
     rng = random.Random(seed + 1)
-    wall, events, busy_s = device_profile(lambda: app.prove_shuffle(rng, joint, deck, pp, kzg))
+    return profile_fn(lambda: app.prove_shuffle(rng, joint, deck, pp, kzg), latency,
+                      f"prove52 ({name})")
+
+
+def profile_fn(fn, latency, label):
+    """fn(), one proof, under torch.profiler.  The idle share is taken
+    against the profiled proof's wall time (profiler on); busy time over the
+    unprofiled latency is printed beside it.  Returns log_port_kernels'
+    sums, or {} when the profiler recorded no device event."""
+    wall, events, busy_s = device_profile(fn)
     if events is None:
-        log(f"profiled prove52 ({name}): the profiler recorded no device events (busy time not "
-            "measured)")
+        log(f"profiled {label}: the profiler recorded no device events (busy time not measured)")
         return {}
-    log(f"profiled prove52 ({name}): wall {wall:.3f} s (profiler on), {len(events)} device "
+    log(f"profiled {label}: wall {wall:.3f} s (profiler on), {len(events)} device "
         f"events, device busy {busy_s:.4f} s, idle share of the profiled wall "
         f"{1 - busy_s / wall:.4f}; busy / unprofiled latency {busy_s / latency:.4f}")
     log_device_time(events, 15)
     return log_port_kernels(events)
 
 
+BUILD_EVENT_NAMES = {"fp_mont_mul": "mont_mul", "fb_bases": "fb_bases",
+                     "fb_mult_chunk": "fb_mult_chunk", "fq_batch_inv": "fq_inv_"}
+
+
 def profile_table_build(tbl, dev):
     """A second build of the same table under torch.profiler: the device
     time of the four kernels apart from the rest (the strided copies of each
     chunk into the table, fills, host-to-device copies) and the host's
-    share of the wall."""
+    share of the wall.  A third build runs first under the profiler and is
+    dropped (device_profile's warm).  Returns {wrapper: (device ms, kernel
+    launches)} for the four wrappers, (None, count) for one whose kernel
+    count in the profile differs from its launches (fq_batch_inv: one
+    fq_inv_root_kernel a call), or {} when the profiler recorded no device
+    event."""
+    from uzkge_tpu_torch import kernels
     from uzkge_tpu_torch.msm.fixed_base import FixedBaseTable
 
-    wall, events, busy_s = device_profile(
-        lambda: FixedBaseTable(tbl.points, c=tbl.c, bits=tbl.bits, device=dev))
+    def build():
+        FixedBaseTable(tbl.points, c=tbl.c, bits=tbl.bits, device=dev)
+
+    before = dict(kernels.LAUNCHES)
+    wall, events, busy_s = device_profile(build, warm=build)
     if events is None:
-        log("profiled table build: the profiler recorded no device events (not measured)")
-        return
-    ours = ("fb_bases", "fb_mult_chunk", "fq_inv_", "mont_mul")
-    kern_us = sum(hi - lo for lo, hi, name in events if any(k in name for k in ours))
-    other_us = sum(hi - lo for lo, hi, name in events) - kern_us
-    log(f"profiled table build: wall {wall:.4f} s (profiler on), {len(events)} device events, "
-        f"device busy {busy_s:.4f} s: the four kernels {kern_us / 1e6:.4f} s, other device "
-        f"events {other_us / 1e6:.4f} s; not busy {wall - busy_s:.4f} s")
+        log(f"profiled table build (n={tbl.n}): the profiler recorded no device events "
+            "(not measured)")
+        return {}
+    launched = {k: (kernels.LAUNCHES[k] - before.get(k, 0)) // 2 for k in BUILD_EVENT_NAMES}
+    per = {}
+    for k, sub in BUILD_EVENT_NAMES.items():
+        ms = sum(hi - lo for lo, hi, name in events if sub in name) / 1e3
+        count = sum(sub in name for _, _, name in events)
+        seen = (sum("fq_inv_root" in name for _, _, name in events) if k == "fq_batch_inv"
+                else count)
+        if seen != launched[k]:
+            log(f"profiled table build (n={tbl.n}): {k} shows {seen} kernels for "
+                f"{launched[k]} launches: its device time not measured")
+            ms = None
+        per[k] = (ms, count)
+    kern_ms = sum(hi - lo for lo, hi, name in events
+                  if any(sub in name for sub in BUILD_EVENT_NAMES.values())) / 1e3
+    other_ms = sum(hi - lo for lo, hi, name in events) / 1e3 - kern_ms
+    log(f"profiled table build (n={tbl.n}): wall {wall:.4f} s (profiler on), {len(events)} "
+        f"device events, device busy {busy_s:.4f} s: the four kernels {kern_ms / 1e3:.4f} s, "
+        f"other device events {other_ms / 1e3:.4f} s; not busy {wall - busy_s:.4f} s")
+    log("  the four kernels' device ms and launches in the build: " + json.dumps(per))
     log_device_time(events, 10)
+    return per
 
 
 def prove_timed(app, rng, joint, deck, pp, kzg, name):
-    """One prove_shuffle with the stage timer and the launch counts set to 0
-    just before it; returns (proof, outputs, latency s, launches, stages)."""
+    """One prove_shuffle (run_timed); returns (proof, outputs, latency s,
+    launches, stages)."""
+    (proof, outputs), latency, launches, stages = run_timed(
+        lambda: app.prove_shuffle(rng, joint, deck, pp, kzg), f"prove52 ({name})")
+    return proof, outputs, latency, launches, stages
+
+
+def run_timed(fn, label):
+    """fn(), one proof, with the stage timer and the launch counts set to 0
+    just before it; returns (its result, latency s, launches, stages)."""
     from uzkge_tpu_torch import kernels
     from uzkge_tpu_torch.utils import stagetimer
 
     stagetimer.reset()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    proof, outputs = app.prove_shuffle(rng, joint, deck, pp, kzg)
+    out = fn()
     torch.cuda.synchronize()
     latency = time.perf_counter() - t0
     launches, stages = dict(kernels.LAUNCHES), stagetimer.snapshot()
-    log(f"prove52 ({name}) latency: {latency:.3f} s")
-    log(f"stage breakdown ({name}, s): " + json.dumps(stages))
-    log(f"launches ({name}): " + json.dumps(launches))
-    return proof, outputs, latency, launches, stages
+    log(f"{label} latency: {latency:.3f} s")
+    log(f"stage breakdown ({label}, s): " + json.dumps(stages))
+    log(f"launches ({label}): " + json.dumps(launches))
+    return out, latency, launches, stages
 
 
 def check_digest(blob, golden, name):
@@ -1120,7 +1210,8 @@ def main_path(dev, golden):
     for name in ("latency",) + STAGES:
         a, b = (latency, latency_vb) if name == "latency" else (stages[name], stages_vb[name])
         log(f"{name:24s} {a:12.4f} {b:14.4f}")
-    ctx = {"pp": pp, "joint": joint, "deck": deck, "state": state, "latency": latency,
+    ctx = {"pp": pp, "cs": cs, "kzg": kzg, "joint": joint, "deck": deck, "state": state,
+           "latency": latency,
            "seed": seed, "stages": stages, "ntt_shapes": shapes.counts, "profile": profile,
            "profile_vb": profile_vb}
     return launches, launches_vb, ctx
@@ -1494,6 +1585,388 @@ def sharded_path(dev, golden, ctx, tbl, sc, want):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ matchmaking
+
+MM_BATCHES = (5, 1, 5, 2)  # the generic proof's commits: r1 (5 wires), r2 (z), r3 (5 t), r5
+
+
+def check_mm_query(dev, tbl, errs, rate):
+    """The query's kernels on the n = 8192 table at the matchmaking proof's
+    batches (P = 5, 1, 2; K = 262,144 leaves an MSM), every kernel at every
+    level against its plain version on the same inputs, timed beside it; the
+    points against msm_mont's.  Returns per kernel the ms (CUDA events),
+    plain ms and bound summed over one proof's four queries (P = 5 twice)."""
+    from uzkge_tpu_torch.ff.cuda_field import fp_mont_mul, fp_mont_mul_plain
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.msm import fixed_base as fb
+
+    per_p = {}
+    for P in sorted(set(MM_BATCHES)):
+        sums = {}
+
+        def add(name, ms, pms, nbytes, products):
+            s = sums.setdefault(name, [0.0, 0.0, 0, 0])
+            s[0] += ms
+            s[1] += pms
+            s[2] += nbytes
+            s[3] += products
+
+        n, K = tbl.n, tbl.W * tbl.n
+        sc = random_fr(P * n, dev).view(P, n, 8)
+        flat = sc.view(P * n, 8)
+        one = fr.const_raw(1, dev).expand(P * n, 8).contiguous()
+        _, ms, pms = compare(errs, "fp_mont_mul", f"Fr N={P * n}",
+                             lambda: fp_mont_mul(fr, flat, one),
+                             lambda: fp_mont_mul_plain(fr, flat, one))
+        add("fp_mont_mul", ms, pms, 96 * P * n, P * n)
+        d = fb.scalars_to_digits(sc, tbl.c, tbl.bits).transpose(1, 2).reshape(P, K).contiguous()
+        (x, y, inf), ms, pms = compare(errs, "fb_select", f"P={P} K={K}",
+                                       lambda: fb.fb_select(d, tbl.table),
+                                       lambda: fb.fb_select_plain(d, tbl.table))
+        add("fb_select", ms, pms, P * K * (4 + 64 + 64 + 4), 0)
+        Kc = K
+        for _ in range(fb.AFFINE_LEVELS):
+            H = Kc // 2
+            (den, flags), ms, pms = compare(errs, "fb_pair_den", f"P={P} H={H}",
+                                            lambda: fb.fb_pair_den(x, inf),
+                                            lambda: fb.fb_pair_den_plain(x, inf))
+            add("fb_pair_den", ms, pms, P * Kc * 36 + P * H * 36, 0)
+            dflat = den.view(P * H, 8)
+            (dinv,), ms, pms = compare(errs, "fq_batch_inv", f"N={P * H}",
+                                       lambda: fb.fq_batch_inv(dflat),
+                                       lambda: fb.fq_batch_inv_plain(dflat))
+            add("fq_batch_inv", ms, pms, 64 * P * H, batch_inv_products(P * H))
+            dinv = dinv.view(P, H, 8)
+            (x, y, inf), ms, pms = compare(errs, "fb_pair_combine", f"P={P} H={H}",
+                                           lambda: fb.fb_pair_combine(x, y, dinv, flags),
+                                           lambda: fb.fb_pair_combine_plain(x, y, dinv, flags))
+            add("fb_pair_combine", ms, pms, combine_bytes(P, H), 3 * P * H)
+            Kc = H
+        pts = fb.to_projective(x, y, inf)
+        tail, ms, pms = compare(errs, "fb_fold", f"P={P} Kc={Kc} tail",
+                                lambda: fb.fold_tail(*pts), lambda: fb.fold_tail_plain(*pts))
+        add("fb_fold", ms, pms, 96 * P * (Kc + 1), PADD_PRODUCTS * P * (Kc - 1))
+        if fb._extract_host(*tail) != tbl.msm_mont(sc):
+            raise AssertionError(f"the query's levels at n = {n}, P = {P} disagree with msm_mont")
+        per_p[P] = sums
+    res = {}
+    for name in ("fp_mont_mul", "fb_select", "fb_pair_den", "fq_batch_inv", "fb_pair_combine",
+                 "fb_fold"):
+        ms = sum(per_p[P][name][0] for P in MM_BATCHES)
+        pms = sum(per_p[P][name][1] for P in MM_BATCHES)
+        b = bound(sum(per_p[P][name][2] for P in MM_BATCHES),
+                  sum(per_p[P][name][3] for P in MM_BATCHES), rate)
+        res[name] = {"mm_events_ms": ms, "mm_plain_ms": pms, "mm_bound_ms": b["bound_ms"],
+                     "mm_bound_by": b["bound_by"]}
+        log(f"{name} per matchmaking proof (queries at P = 5, 1, 5, 2, n = {tbl.n}): kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return res
+
+
+def check_mm_pippenger(dev, rng, rate):
+    """msm_bucket_accumulate (limb for limb) and msm_bucket_reduce (as affine
+    window sums) at n = 8192 on dense rows at the matchmaking proof's
+    batches (P = 5, 1, 2), each against its plain version, timed beside it;
+    returns each kernel's ms, plain ms and bound summed over one proof's
+    four batches."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.gen_params import load_srs
+    from uzkge_tpu_torch.msm import msm as M
+
+    bases = M.MSMBases(load_srs(8192, dev)._lagrange_points, dev)
+    n, per_p = bases.n, {}
+    for P in sorted(set(MM_BATCHES)):
+        std = fr.from_mont(torch.stack([
+            fr.to_mont_limbs([rng.randrange(R_MOD) for _ in range(n)], dev) for _ in range(P)]))
+        L = M.pick_piece(n, P, dev)
+        ms, kb = cuda_ms(lambda: M.msm_bucket_accumulate(bases.x, bases.y, std, L))
+        pms, pb = cuda_ms(lambda: M.msm_bucket_accumulate_plain(bases.x, bases.y, std, L), reps=0)
+        if not torch.equal(kb, pb):
+            raise AssertionError(f"msm_bucket_accumulate (n={n}, P={P}, L={L}) disagrees with "
+                                 "its plain version")
+        rms, ks = cuda_ms(lambda: M.msm_bucket_reduce(kb))
+        rpms, kp = cuda_ms(lambda: M.msm_bucket_reduce_plain(kb), reps=0)
+        want = window_points(kp)
+        if point_err(window_points(ks), want) != 0 or None in want:
+            raise AssertionError(f"msm_bucket_reduce (n={n}, P={P}) disagrees with its plain "
+                                 "version")
+        a, r = acc_bound(std, n, rate), reduce_bound(P, kb.shape[1], rate)
+        log(f"Pippenger n={n} P={P} L={L}: msm_bucket_accumulate {ms:.4f} ms (plain {pms:.4f}, "
+            f"bound {a['bound_ms']:.4f}), msm_bucket_reduce {rms:.4f} ms (plain {rpms:.4f}, "
+            f"bound {r['bound_ms']:.4f}); both equal to their plain versions")
+        per_p[P] = {"msm_bucket_accumulate": (ms, pms, a["bound_ms"]),
+                    "msm_bucket_reduce": (rms, rpms, r["bound_ms"])}
+        del kb, pb, ks, kp
+    return {name: {"mm_events_ms": sum(per_p[P][name][0] for P in MM_BATCHES),
+                   "mm_plain_ms": sum(per_p[P][name][1] for P in MM_BATCHES),
+                   "mm_bound_ms": sum(per_p[P][name][2] for P in MM_BATCHES)}
+            for name in VB_KERNELS}
+
+
+def check_params_cache(dev, pp):
+    """The port's params cache on the card: the matchmaking prover params
+    saved to a temporary directory and loaded back (to the card, the
+    default); every tensor equal and on the card, the host part and the
+    verifying key equal."""
+    import shutil
+    import tempfile
+    from dataclasses import fields
+
+    from uzkge_tpu_torch.plonk.indexer import ProverParams
+    from uzkge_tpu_torch.utils import params_cache as pc
+
+    tmp = tempfile.mkdtemp(prefix="uzkge-pp-")
+    try:
+        path = os.path.join(tmp, "matchmaking-pp")
+        t0 = time.perf_counter()
+        pc.save_pp(path, pp)
+        t1 = time.perf_counter()
+        got = pc.load_pp(path, ProverParams)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if got is None:
+            raise AssertionError("params cache: the saved matchmaking params did not load")
+        nbytes = 0
+        for f in fields(ProverParams):
+            a, b = getattr(got, f.name), getattr(pp, f.name)
+            if isinstance(b, torch.Tensor):
+                if a.device.type != "cuda" or not torch.equal(a, b):
+                    raise AssertionError(f"params cache: {f.name} differs or is not on the card")
+                nbytes += a.numel() * 4
+            elif a != b:
+                raise AssertionError(f"params cache: {f.name} differs")
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        log(f"params cache ({pc.SCHEMA_VERSION}): matchmaking params saved in {t1 - t0:.3f} s, "
+            f"loaded to the card in {t2 - t1:.3f} s; {size} B on disk, {nbytes} B of tensors, "
+            "every tensor equal and on the card, host part equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def matchmaking_path(dev, golden, rate, errs, rng, ntt_52):
+    """zmatchmaking's 50-player proof (the generic TurboPLONK shape, n = 8192,
+    m = 65536) at full size: set-up (the embedded vk refused as stale, the
+    circuit re-indexed, the n = 8192 table built), the seeded proof on the
+    fixed-base route, verified, a tampered one rejected, its sha256 the JAX
+    package's `golden`; a profiled proof; the same proof through a
+    fixed_base=False KZG from the same rng state; both routes' stages; the
+    kernels at the proof's new shapes; table rows; the params cache.
+    Returns what the kernels line needs."""
+    from uzkge_tpu_torch import kernels
+    from uzkge_tpu_torch.errors import MissingVerifierParamsError
+    from uzkge_tpu_torch.gen_params import load_matchmaking_verifier_params, load_srs
+    from uzkge_tpu_torch.hash.anemoi import eval_variable_length_hash
+    from uzkge_tpu_torch.matchmaking import app
+    from uzkge_tpu_torch.plonk.cs import N_SELECTORS
+    from uzkge_tpu_torch.plonk.proof_io import proof_from_bytes_be, proof_to_bytes_be
+
+    try:
+        load_matchmaking_verifier_params()
+        raise AssertionError("the embedded matchmaking vk was not refused as stale")
+    except MissingVerifierParamsError as e:
+        log(f"embedded matchmaking vk refused: {e}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pp, cs, kzg = app.gen_matchmaking_prover_params(app.N, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup = {k: kernels.LAUNCHES[k] for k in FB_KERNELS + ("ntt_pass", "fb_select")}
+    log(f"matchmaking prover params (N = {app.N}, n = {pp.n}, m = {pp.m}, circuit re-indexed, "
+        f"{len(pp.verifier_params.cm_q_vec)} selector commitments): {setup_s:.3f} s; set-up "
+        f"launches {json.dumps(setup)}")
+    if ((pp.n, pp.m, pp.with_shuffle) != (8192, 65536, False)
+            or len(pp.verifier_params.cm_q_vec) != N_SELECTORS):
+        raise AssertionError("the matchmaking params are not the re-indexed generic n = 8192 ones")
+    if not kzg.uses_fixed_base() or min(setup[k] for k in SETUP_KERNELS + ("fb_select",)) <= 0:
+        raise AssertionError("the matchmaking set-up did not build the n = 8192 table and "
+                             "commit through it")
+
+    seed = golden["seed"]
+    prng = random.Random(seed)
+    inputs, committed_seed, random_number = req = app.seeded_match(prng, app.N)
+    state = prng.getstate()
+    label = "prove_mm50 (fixed-base)"
+    with NttShapes() as shapes:
+        (proof, outputs), latency, launches, stages = run_timed(
+            lambda: app.prove_matchmaking(prng, *req, pp, kzg), label)
+    log("ntt_pass shapes of the matchmaking proof (OUT, S, IN, pre, post, const): launches " +
+        json.dumps({str(k): v for k, v in sorted(shapes.counts.items())}))
+    missing = [k for k in PROOF_KERNELS if launches[k] <= 0]
+    if missing or kzg._lagrange_vb is not None:
+        raise AssertionError(f"the matchmaking proof launched no {missing} or used the Pippenger")
+    if sorted(outputs) != sorted(inputs):
+        raise AssertionError("the matchmaking outputs are not a permutation of the inputs")
+    moved = sum(a != b for a, b in zip(outputs, inputs))
+    blob = proof_to_bytes_be(proof, with_shuffle=False)
+    check_digest(blob, golden, label)
+    commitment = eval_variable_length_hash([committed_seed])
+    vk, proof2 = pp.verifier_params, proof_from_bytes_be(blob, with_shuffle=False)
+    if len(blob) != 1312 or not app.verify_matchmaking(vk, kzg, inputs, outputs, commitment,
+                                                       random_number, proof2):
+        raise AssertionError("the port's verifier rejects the matchmaking proof")
+    bad = list(outputs)
+    bad[0], bad[1] = bad[1], bad[0]
+    if app.verify_matchmaking(vk, kzg, inputs, bad, commitment, random_number, proof2):
+        raise AssertionError("the verifier accepts a matchmaking proof with two outputs swapped")
+    log(f"matchmaking: outputs a permutation of the inputs ({moved} of {app.N} moved); proof "
+        f"({len(blob)} B) accepted, two outputs swapped rejected")
+    profile = profile_fn(lambda: app.prove_matchmaking(random.Random(seed + 1), *req, pp, kzg),
+                         latency, label)
+
+    kzg_vb = load_srs(pp.n, dev, fixed_base=False)
+    kzg_vb.commit_evals(torch.zeros((pp.n, 8), dtype=torch.int32, device=dev))  # its bases
+    rng_vb = random.Random()
+    rng_vb.setstate(state)
+    label_vb = "prove_mm50 (variable-base)"
+    (proof_vb, _), latency_vb, launches_vb, stages_vb = run_timed(
+        lambda: app.prove_matchmaking(rng_vb, *req, pp, kzg_vb), label_vb)
+    check_digest(proof_to_bytes_be(proof_vb, with_shuffle=False), golden, label_vb)
+    missing = [k for k in VB_KERNELS if launches_vb[k] <= 0]
+    if missing or launches_vb["fb_select"]:
+        raise AssertionError(f"the variable-base matchmaking proof launched no {missing} or used "
+                             "the table")
+    profile_vb = profile_fn(lambda: app.prove_matchmaking(random.Random(seed + 1), *req, pp,
+                                                          kzg_vb), latency_vb, label_vb)
+    log(f"{'matchmaking stage (s)':24s} {'fixed-base':>12s} {'variable-base':>14s}")
+    for name in ("latency",) + tuple(sorted(set(stages) | set(stages_vb))):
+        a, b = ((latency, latency_vb) if name == "latency"
+                else (stages.get(name, 0.0), stages_vb.get(name, 0.0)))
+        log(f"{name:24s} {a:12.4f} {b:14.4f}")
+
+    new = {k: v for k, v in shapes.counts.items() if k not in ntt_52}
+    log("ntt_pass shapes new to the matchmaking proof (not in the 52-card proof): " +
+        json.dumps({str(k): v for k, v in sorted(new.items())}))
+    ntt = time_ntt_shapes(dev, shapes.counts, rate, errs)
+    tbl = kzg.lagrange_fb_table()
+    log(f"matchmaking table (n={tbl.n} c={tbl.c} W={tbl.W} D={tbl.D}, {tbl.table.numel() * 4} B): "
+        f"{check_table_rows(tbl, rng)} sampled rows == host bn254 multiples")
+    build = check_fixed_base_full(dev, tbl, rate, errs)
+    build_prof = profile_table_build(tbl, dev)
+    for name in FB_KERNELS:
+        # fb_bases and fb_mult_chunk run on matchmaking's path only here, so
+        # their mm_* fields are the build's; the other two keep the query's
+        pre = "mm_" if name in SETUP_KERNELS else "mm_setup_"
+        b = build[name]
+        build[name] = {f"{pre}events_ms": b["ms"], f"{pre}plain_ms": b["plain_ms"],
+                       f"{pre}bound_ms": b["bound_ms"], f"{pre}bound_by": b["bound_by"],
+                       f"{pre}shape": b["shape"],
+                       "mm_setup_ms": build_prof[name][0] if build_prof else None,
+                       "mm_setup_profiled_launches": build_prof[name][1] if build_prof else None}
+    query = check_mm_query(dev, tbl, errs, rate)
+    vb = check_mm_pippenger(dev, rng, rate)
+    check_params_cache(dev, pp)
+    query["ntt_pass"] = {"mm_events_ms": ntt["ms"], "mm_plain_ms": ntt["plain_ms"],
+                         "mm_bound_ms": ntt["bound_ms"]}
+    query.update(vb)
+    for name, res in build.items():
+        query.setdefault(name, {}).update(res)
+    return {"setup_s": setup_s, "setup": setup, "launches": launches, "launches_vb": launches_vb,
+            "profile": profile, "profile_vb": profile_vb, "per_proof": query,
+            "latency": latency, "latency_vb": latency_vb}
+
+
+# ------------------------------------------------------------------- SDK
+
+def _sdk_verify_mask(args):
+    """verify_masked_card in a worker process (host BabyJubjub arithmetic)."""
+    from uzkge_tpu_torch.shuffle import sdk
+
+    return sdk.verify_masked_card(*args)
+
+
+def _sdk_open(args):
+    """Players 1-3 reveal `card`, each share checked with its proof; player
+    0 unmasks it with its own key; returns the card's index (-1 when a
+    reveal is rejected)."""
+    from uzkge_tpu_torch.shuffle import sdk
+
+    players, card = args
+    reveals = [sdk.reveal_card(sk, card) for sk, _ in players[1:]]
+    if not all(sdk.verify_revealed_card(pk, card, r) for (_, pk), r in zip(players[1:], reveals)):
+        return -1
+    return sdk.unmask_card(players[0][0], card, [r["card"] for r in reveals])
+
+
+def sdk_path(ctx, n=52):
+    """The SDK's hex game flow for n cards and four players: keypairs,
+    aggregate_keys, refresh_joint_key, init_masked_cards, verify_masked_card,
+    shuffle_cards (the proof on the card), verify_shuffled_cards (and a
+    tampered deck rejected), reveal_card / verify_revealed_card by three
+    players and unmask_card by the fourth; the revealed indices must be the
+    deck's n.  `ctx` holds phase 4's n-card prover params.  The per-card host arithmetic (a BabyJubjub product is ~0.2 s
+    of Python) runs in 8 spawned worker processes, which end with the
+    phase.  Runs last: the key refresh rewrites phase 4's params."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from uzkge_tpu_torch.shuffle import sdk
+
+    sdk._PARAMS[n] = (ctx["pp"], ctx["cs"], ctx["kzg"])
+    log(f"SDK: the {n}-card prover params handed over from phase 4: sdk._PARAMS[{n}] = the (pp, "
+        f"cs, kzg) of its gen_shuffle_prover_params({n}) on the card, so init_prover_key({n}) "
+        "builds nothing")
+    t0 = time.perf_counter()
+    players = [sdk.generate_keypair() for _ in range(4)]
+    joint = sdk.aggregate_keys([pk for _, pk in players])
+    words = sdk.refresh_joint_key(joint, n)
+    t1 = time.perf_counter()
+    deck = sdk.init_masked_cards(joint, n)
+    t2 = time.perf_counter()
+    cards = [c["card"] for c in deck]
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        masks_ok = list(pool.map(_sdk_verify_mask, [(joint, i, c["card"], c["proof"])
+                                                    for i, c in enumerate(deck)]))
+        t3 = time.perf_counter()
+        shuffled = sdk.shuffle_cards(joint, cards)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        ok = sdk.verify_shuffled_cards(cards, shuffled["cards"], shuffled["proof"])
+        bad = list(shuffled["cards"])
+        bad[0], bad[1] = bad[1], bad[0]
+        ok_bad = sdk.verify_shuffled_cards(cards, bad, shuffled["proof"])
+        t5 = time.perf_counter()
+        indices = list(pool.map(_sdk_open, [(players, c) for c in shuffled["cards"]]))
+        t6 = time.perf_counter()
+    if len(words) != 2 * len(ctx["pp"].verifier_params.cm_shuffle_public_key_vec):
+        raise AssertionError(f"SDK: refresh_joint_key gave {len(words)} words")
+    if not all(masks_ok):
+        raise AssertionError(f"SDK: verify_masked_card rejects cards {masks_ok}")
+    if not ok or ok_bad:
+        raise AssertionError(f"SDK: verify_shuffled_cards gave {ok} on the shuffle, {ok_bad} on "
+                             "a tampered deck")
+    if sorted(indices) != list(range(n)):
+        raise AssertionError(f"SDK: the revealed cards are not the deck's {n} ({indices})")
+    log(f"SDK hex game flow, {n} cards, 4 players: keys + refresh_joint_key ({len(words)} words) "
+        f"{t1 - t0:.3f} s, init_masked_cards {t2 - t1:.3f} s, verify_masked_card x{n} "
+        f"{t3 - t2:.3f} s, shuffle_cards {t4 - t3:.3f} s, verify_shuffled_cards (accepted, a "
+        f"tampered deck rejected) {t5 - t4:.3f} s, 3 x reveal_card + verify_revealed_card and "
+        f"unmask_card x{n} {t6 - t5:.3f} s; the revealed indices are the deck's {n} "
+        f"({sum(i != j for i, j in enumerate(indices))} moved by the shuffle)")
+
+
+# the wrappers' kernels as the profiles name them
+PROFILE_NAMES = {"msm_bucket_accumulate": ACC_KERNELS, "fq_batch_inv": (
+    "fq_inv_down_kernel", "fq_inv_root_kernel", "fq_inv_up_kernel")}
+
+
+def matchmaking_row(name, mm):
+    """A kernel's numbers on the matchmaking proof for the kernels line:
+    mm_launches (the fixed-base proof's; the variable-base proof's for the
+    Pippenger's two; the set-up's table build for fb_bases and
+    fb_mult_chunk), mm_setup_launches, mm_proof_ms (device time in that
+    proof's profile, summed over the wrapper's kernels) and, where phase 7
+    timed the kernel at the proof's shapes, mm_events_ms, mm_plain_ms and
+    mm_bound_ms summed over one proof."""
+    vb = name in VB_KERNELS
+    launches = mm["setup"] if name in SETUP_KERNELS else mm["launches_vb" if vb else "launches"]
+    prof = mm["profile_vb" if vb else "profile"]
+    names = PROFILE_NAMES.get(name, (f"{name}_kernel",))
+    return {"mm_launches": launches.get(name, 0), "mm_setup_launches": mm["setup"].get(name, 0),
+            "mm_proof_ms": sum(prof[k][0] for k in names if k in prof) if prof else None,
+            **mm["per_proof"].get(name, {})}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this smoke run needs one", file=sys.stderr)
@@ -1502,6 +1975,7 @@ def main():
     from uzkge_tpu_torch import kernels  # fails outside a checkout of the repo
 
     dev = torch.device("cuda:0")
+    start = time.perf_counter()
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -1511,7 +1985,8 @@ def main():
     log(f"kernel build + load: {time.perf_counter() - t0:.3f} s")
 
     with open(GOLDEN) as f:
-        golden = json.load(f)["52"]
+        goldens = json.load(f)
+    golden = goldens["52"]
     rng = random.Random(golden["seed"])
     rate = imul_rate()
     log(f"bounds: {HBM_BYTES_PER_S:.4g} B/s, {rate:.4g} 32-bit multiplies/s")
@@ -1546,6 +2021,9 @@ def main():
         + sum(b["fb_pair_combine_bound"] for b in batches.values()))
     chain, sc, want = check_chain_full(dev, tbl, rate, errs, query_ms)
     group_launches, prof_grp = sharded_path(dev, golden, ctx, tbl, sc, want)
+    del tbl, sc
+    mm = matchmaking_path(dev, goldens["mm50"], rate, errs, rng, ctx["ntt_shapes"])
+    sdk_path(ctx)
     prof_vb = ctx["profile_vb"]
     for res, names, prof_route in ((acc, ACC_KERNELS, prof_vb),
                                    (red, ("msm_bucket_reduce_kernel",), prof_vb),
@@ -1583,11 +2061,14 @@ def main():
         ("scan_leaf_reduce", s_src, f"{jfb}:195", chain["scan_leaf_reduce"]),
         ("scan_proj_reduce", s_src, f"{jfb}:215", chain["scan_proj_reduce"]),
     ]
+    for name, _, _, res in rows:
+        res.update(matchmaking_row(name, mm))
     out = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **res}
         for name, src, rep, res in rows
     ]}
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s from the card check to the kernels line")
     log(json.dumps(out))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -84,3 +84,36 @@ def load_shuffle_verifier_params(n_cards: int) -> VerifierParams:
     (shuffle/src/gen_params/mod.rs:6-31).  A fresh object per call: the
     public-key refresh writes into it."""
     return _vk_from_parsed(_parsed_shuffle_vk(n_cards), with_shuffle=True)
+
+
+@lru_cache(maxsize=1)
+def _parsed_matchmaking_vk() -> dict:
+    return ser.parse_verifier_params_specific(
+        _read_required("vk-specific-matchmaking.bin", MissingVerifierParamsError),
+        with_shuffle=False)
+
+
+def load_matchmaking_verifier_params() -> VerifierParams:
+    """Embedded matchmaking vk (matchmaking/parameters/vk-specific.bin).
+
+    The reference repo's committed file is STALE: it carries 8 selector
+    commitments, but the current TurboCS has N_SELECTORS = 9
+    (turbo/mod.rs:23) and the prover linearizes all 9 q polynomials
+    (helpers.rs:1048-1050), so no proof produced by the current circuit can
+    verify against it (the -w4*q_out term is missing from the reconstructed
+    r commitment).  The reference API's own remedy is the regeneration
+    fallback in matchmaking/src/gen_params/params.rs:44-48; we mirror it by
+    refusing the stale file here (callers catch and re-index).  The file's
+    OTHER fields — cm_s_vec, cm_prk_vec, anemoi generators, k,
+    lagrange_constants, public-input indices — do match the regenerated
+    circuit exactly."""
+    from .plonk.cs import N_SELECTORS
+
+    vk = _vk_from_parsed(_parsed_matchmaking_vk(), with_shuffle=False)
+    if len(vk.cm_q_vec) != N_SELECTORS:
+        raise MissingVerifierParamsError(
+            f"embedded matchmaking vk is stale: {len(vk.cm_q_vec)} selector "
+            f"commitments != N_SELECTORS={N_SELECTORS}; regenerate via the "
+            "indexer (reference fallback: matchmaking gen_params/params.rs:44-48)"
+        )
+    return vk

@@ -3,8 +3,13 @@ by the Solidity verifier (reference indexer.rs:538-732,
 ShuffleVerifier.sol:31-86).
 
 Shuffle-shaped proof = 16 uncompressed G1 points + 19 Fr scalars = 1632 bytes;
-generic (non-shuffle) = 12 points + 15 scalars = 1248 bytes.
+generic (non-shuffle) = 13 points + 15 scalars = 1312 bytes.  (The JAX
+package's proof_io states 12 points and 1248 bytes for the generic shape, so
+its `proof_from_bytes_be` refuses every generic proof; its writer agrees
+with this one.)
 """
+
+PROOF_BYTES = {True: 1632, False: 1312}  # by with_shuffle
 
 from ..errors import ProofError
 from ..utils.serialize import point_to_uncompress_be, g1_from_uncompress_be, scalar_to_bytes_be, scalar_from_bytes_be
@@ -39,7 +44,7 @@ def proof_to_bytes_be(proof: dict, with_shuffle: bool = True) -> bytes:
 
 
 def proof_from_bytes_be(data: bytes, with_shuffle: bool = True) -> dict:
-    want = 1632 if with_shuffle else 1248
+    want = PROOF_BYTES[with_shuffle]
     if len(data) != want:
         raise ProofError(f"proof must be {want} bytes, got {len(data)}")
     n_wire = 5

@@ -1,14 +1,17 @@
-"""zshuffle application on the torch prover: circuit, keys, prove, verify.
+"""zshuffle application on the torch prover: circuit, keys, prove, verify,
+mask / reveal / unmask.
 
-Counterpart of the proving half of `uzkge_tpu/shuffle/app.py` (reference
-shuffle/src/{build_cs.rs, gen_params}).  `build_cs` is a copy of the host
-circuit builder there, over this package's own copies of the circuit and
-card primitives (plonk/cs.py, plonk/gadgets.py, shuffle/primitives.py).
+Counterpart of `uzkge_tpu/shuffle/app.py` (reference shuffle/src/{build_cs.rs,
+keygen.rs, mask.rs, reveal.rs, gen_params}).  `build_cs` and the game flow
+are copies of the host code there, over this package's own copies of the
+circuit, card and Chaum-Pedersen primitives (plonk/cs.py, plonk/gadgets.py,
+shuffle/primitives.py, crypto/chaum_pedersen.py).
 """
 
 import random as _random
 from typing import List, Tuple
 
+from ..crypto.chaum_pedersen import cp_prove, cp_prove0, cp_verify, cp_verify0
 from ..curve import babyjubjub as bjj
 from ..plonk import gadgets as _gadgets  # noqa: F401  (attaches gadget methods)
 from ..plonk.cs import TurboCS
@@ -25,6 +28,83 @@ from .primitives import (
 )
 
 PLONK_PROOF_TRANSCRIPT = b"Plonk shuffle Proof"
+
+
+# ------------------------------------------------------------------- keygen
+
+
+class Keypair:
+    """(keygen.rs:11-26)"""
+
+    def __init__(self, secret: int):
+        self.secret = secret % bjj.ORDER
+        self.public = bjj.mul(bjj.GENERATOR, self.secret)
+
+    @staticmethod
+    def generate(rng: _random.Random) -> "Keypair":
+        return Keypair(rng.randrange(1, bjj.ORDER))
+
+
+def aggregate_keys(keys: List[Tuple[int, int]]):
+    acc = bjj.IDENTITY
+    for k in keys:
+        acc = bjj.add(acc, k)
+    return acc
+
+
+# ------------------------------------------------------------- mask / reveal
+
+
+def mask(rng, shared_key, card, r: int):
+    """ElGamal mask + Chaum-Pedersen proof (mask.rs:13-35)."""
+    e1 = bjj.mul(bjj.GENERATOR, r)
+    e2 = bjj.add(card, bjj.mul(shared_key, r))
+    ce2 = bjj.add(e2, bjj.neg(card))
+    transcript = Transcript(b"Masking")
+    proof = cp_prove(rng, bjj.GENERATOR, shared_key, transcript, r, e1, ce2)
+    return Ciphertext(e1, e2), proof
+
+
+def verify_mask(shared_key, card, masked: Ciphertext, proof) -> bool:
+    ce2 = bjj.add(masked.e2, bjj.neg(card))
+    transcript = Transcript(b"Masking")
+    return cp_verify(bjj.GENERATOR, shared_key, transcript, masked.e1, ce2, proof)
+
+
+def reveal(rng, keypair: Keypair, masked: Ciphertext):
+    """Partial decryption share + CP proof (reveal.rs:18-41)."""
+    share = bjj.mul(masked.e1, keypair.secret)
+    transcript = Transcript(b"Revealing")
+    proof = cp_prove(rng, masked.e1, bjj.GENERATOR, transcript, keypair.secret, share, keypair.public)
+    return share, proof
+
+
+def verify_reveal(pk, masked: Ciphertext, reveal_card, proof) -> bool:
+    transcript = Transcript(b"Revealing")
+    return cp_verify(masked.e1, bjj.GENERATOR, transcript, reveal_card, pk, proof)
+
+
+def reveal0(rng, keypair: Keypair, masked: Ciphertext):
+    """zk-friendly (Anemoi-challenge) reveal (reveal.rs:44-60)."""
+    share = bjj.mul(masked.e1, keypair.secret)
+    proof = cp_prove0(rng, masked.e1, bjj.GENERATOR, keypair.secret, share, keypair.public)
+    return share, proof
+
+
+def verify_reveal0(pk, masked: Ciphertext, reveal_card, proof) -> bool:
+    """(reveal.rs:78-90)"""
+    return cp_verify0(masked.e1, bjj.GENERATOR, reveal_card, pk, proof)
+
+
+def unmask(masked: Ciphertext, reveal_cards: List):
+    """e2 - sum(shares) (reveal.rs:93-97)."""
+    agg = bjj.IDENTITY
+    for r in reveal_cards:
+        agg = bjj.add(agg, r)
+    return bjj.add(masked.e2, bjj.neg(agg))
+
+
+# ------------------------------------------------------------------ circuit
 
 
 def seeded_game(rng, n_cards: int, n_players: int = 4) -> Tuple[tuple, List[Ciphertext]]:
