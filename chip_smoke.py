@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 The seeds are the ones the golden digests were made with
-(tests/data/torch_golden.json, keys "52" and "mm50").
+(tests/data/torch_golden.json, keys "52", "mm50", "reveal" and "g16toy").
 
 Phases, any failure exits nonzero:
   1. device check: a CUDA card is required (never falls back to the CPU);
@@ -116,7 +116,24 @@ Phases, any failure exits nonzero:
      set-up), from keypairs to unmask_card, every check of the flow passing
      and the revealed indices the deck's 52; its per-card host arithmetic in
      8 spawned processes;
-  9. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
+  9. the Groth16 phase: the embedded reveal proving key (groth16_pk.bin,
+     domain 8192) and the own-shape setup of a 700-product chain (domain
+     1024) are made on the host in 2 spawned worker processes started
+     before the kernel build; prove_reveal_onchain for the seeded sk and
+     masked e1 (key "reveal") on the card, its witness map's six ntt_pass
+     launches and four G1 MSMs (n = 2823, 4094, 4862, 8191, P = 1) on the
+     card, the G2 MSM on the host, with its stage times: the sha256 of its
+     Solidity words and reveal point must equal the JAX package's,
+     verify_reveal_onchain must accept it and reject the reveal point
+     changed by one, and ntt_pass and both Pippenger kernels must have
+     been launched; a second reveal profiled (device busy, idle share,
+     device time by kernel); sdk.reveal_card_with_snark on the card, its
+     proof verified; msm_bucket_accumulate and msm_bucket_reduce at each of
+     the reveal's four MSMs on its own bases and scalars against their plain
+     versions (and at n = 2823 and 8191 the host Pippenger), timed, and
+     ntt_pass at each of its passes; then groth16.prove of the chain on the
+     card (key "g16toy"), verified, a wrong public input rejected;
+ 10. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
      bound worked out from this run's shapes and what bounds it, and the time
      of one PyTorch call computing the same function where there is one:
      only fb_select's gather; no PyTorch call computes a BN254 NTT, MSM,
@@ -136,7 +153,10 @@ Phases, any failure exits nonzero:
      the four build kernels also mm_setup_ms, their device time in the
      profiled n = 8192 build, and fp_mont_mul and fq_batch_inv
      mm_setup_events_ms, mm_setup_plain_ms, mm_setup_bound_ms at the build's
-     shapes; the card line,
+     shapes; ntt_pass and the Pippenger's two also their numbers on the
+     reveal: g16_launches, g16_proof_ms (its profile) and, summed over the
+     reveal's shapes, g16_events_ms, g16_plain_ms, g16_bound_ms; the card
+     line,
      and last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1896,7 +1916,8 @@ def sdk_path(ctx, n=52):
     players and unmask_card by the fourth; the revealed indices must be the
     deck's n.  `ctx` holds phase 4's n-card prover params.  The per-card host arithmetic (a BabyJubjub product is ~0.2 s
     of Python) runs in 8 spawned worker processes, which end with the
-    phase.  Runs last: the key refresh rewrites phase 4's params."""
+    phase.  Runs after every phase that proves on phase 4's params: the key
+    refresh rewrites them."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1945,6 +1966,213 @@ def sdk_path(ctx, n=52):
         f"({sum(i != j for i, j in enumerate(indices))} moved by the shuffle)")
 
 
+# ------------------------------------------------------------------- groth16
+
+G16_KERNELS = ("ntt_pass", "msm_bucket_accumulate", "msm_bucket_reduce")  # the reveal's
+G16_QUERIES = ("a", "b1", "l", "h")  # the G1 MSMs of a proof, in groth16_prove_with_pk's order
+
+
+def _g16_load_pk():
+    """The embedded 52-card reveal proving key (host ark decompression), in
+    a worker process; returns it and its seconds."""
+    from uzkge_tpu_torch.groth16.ark_pk import load_reference_groth16_pk
+
+    t0 = time.perf_counter()
+    return load_reference_groth16_pk(), time.perf_counter() - t0
+
+
+def _g16_toy_setup(products: int, x: int, setup_seed: bytes):
+    """The own-shape Groth16 setup of chain_circuit(products, x) (host
+    Python), in a worker process; returns the key and its seconds."""
+    from uzkge_tpu_torch.groth16.groth16 import setup
+    from uzkge_tpu_torch.groth16.r1cs import chain_circuit
+
+    t0 = time.perf_counter()
+    return setup(chain_circuit(products, x), seed=setup_seed), time.perf_counter() - t0
+
+
+def g16_host_work(goldens):
+    """Starts the groth16 phase's host-only set-up in 2 spawned worker
+    processes, overlapped with phases 3-8: the embedded key's load and the
+    toy's setup.  Returns the pool and the futures."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+
+    toy = goldens["g16toy"]
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    x = random.Random(toy["seed"]).randrange(1, R_MOD)
+    return pool, {"pk": pool.submit(_g16_load_pk),
+                  "toy": pool.submit(_g16_toy_setup, toy["products"], x,
+                                     toy["setup_seed"].encode())}
+
+
+def g16_words(words) -> bytes:
+    return b"".join(int(w).to_bytes(32, "big") for w in words)
+
+
+def check_g16_msms(dev, apk, cs, rate):
+    """msm_bucket_accumulate (limb for limb) and msm_bucket_reduce (as affine
+    window sums) at each of the reveal's four G1 MSMs (P = 1: the a, b1, l
+    and h queries' non-identity points, 2823, 4094, 4862 and 8191 of them)
+    on the reveal's own bases (the key's cached MSMBases) and scalars (the
+    assignment, the witnesses, the witness map's h), each against its plain
+    version, timed beside it; at n = 2823 and 8191 also the window sums'
+    point against the host Pippenger (ark_prove._pippenger).  Returns each
+    kernel's ms, plain ms and bound summed over one reveal."""
+    from uzkge_tpu_torch.ff.field import fr
+    from uzkge_tpu_torch.groth16.ark_prove import g1_msm_host, qap_witness_map
+    from uzkge_tpu_torch.msm import msm as M
+
+    z = cs.assignment()
+    h = qap_witness_map(*cs.matrices(), z, cs.num_instance, apk.domain_size, dev)
+    scalars = {"a": z, "b1": z, "l": z[cs.num_instance:], "h": h}
+    tot = {k: {"g16_events_ms": 0.0, "g16_plain_ms": 0.0, "g16_bound_ms": 0.0}
+           for k in ("msm_bucket_accumulate", "msm_bucket_reduce")}
+    for name in G16_QUERIES:
+        idx, bases = apk._msm_cache[(name, str(dev))]
+        row = [scalars[name][i] for i in idx]
+        n = bases.n
+        std = fr.from_mont(fr.to_mont_limbs(row, dev)[None])
+        L = M.pick_piece(n, 1, dev)
+        ms, kb = cuda_ms(lambda: M.msm_bucket_accumulate(bases.x, bases.y, std, L))
+        pms, pb = cuda_ms(lambda: M.msm_bucket_accumulate_plain(bases.x, bases.y, std, L), reps=0)
+        if not torch.equal(kb, pb):
+            raise AssertionError(f"msm_bucket_accumulate (reveal's {name} query, n={n}, P=1, "
+                                 f"L={L}) disagrees with its plain version")
+        rms, ks = cuda_ms(lambda: M.msm_bucket_reduce(kb))
+        rpms, kp = cuda_ms(lambda: M.msm_bucket_reduce_plain(kb), reps=0)
+        got, want = window_points(ks), window_points(kp)
+        if point_err(got, want) != 0:
+            raise AssertionError(f"msm_bucket_reduce (reveal's {name} query, n={n}) disagrees "
+                                 "with its plain version")
+        host = ""
+        if n in (2823, 8191):
+            want_pt = g1_msm_host([bases.points[i] for i in range(n)], row)
+            if M._window_sums_to_points(ks.cpu()) != [want_pt]:
+                raise AssertionError(f"the Pippenger (reveal's {name} query, n={n}) disagrees "
+                                     "with the host Pippenger")
+            host = "; its point == the host Pippenger's"
+        a, r = acc_bound(std, n, rate), reduce_bound(1, 1, rate)
+        for k, (t, pt, b) in (("msm_bucket_accumulate", (ms, pms, a)),
+                              ("msm_bucket_reduce", (rms, rpms, r))):
+            tot[k]["g16_events_ms"] += t
+            tot[k]["g16_plain_ms"] += pt
+            tot[k]["g16_bound_ms"] += b["bound_ms"]
+        log(f"Pippenger at the reveal's {name} query (n={n}, P=1, L={L}): msm_bucket_accumulate "
+            f"{ms:.4f} ms (plain {pms:.4f}, bound {a['bound_ms']:.4f} {a['bound_by']}), "
+            f"msm_bucket_reduce {rms:.4f} ms (plain {rpms:.4f}, bound {r['bound_ms']:.4f} "
+            f"{r['bound_by']}); both equal to their plain versions{host}")
+        del kb, pb, ks, kp
+    log("Pippenger per reveal (n = 2823, 4094, 4862, 8191): " + json.dumps(tot))
+    return tot
+
+
+def groth16_path(dev, goldens, rate, errs, pending):
+    """The Groth16 phase.  The reveal for the deployed verifier, through its
+    entry point: prove_reveal_onchain for the golden seed on the card (the
+    embedded key, domain 8192; its witness map's NTTs and four G1 MSMs on
+    the card, the G2 MSM on the host), its words' sha256 equal to the JAX
+    package's (`reveal`), verify_reveal_onchain accepting it and rejecting
+    the reveal point changed by one, ntt_pass and both Pippenger kernels
+    launched; a profiled second reveal; sdk.reveal_card_with_snark on the
+    card, verified; the kernels at the reveal's shapes against their plain
+    versions; then the own-shape setup + prove of the 700-product chain
+    (domain 1024) on the card, its sha256 the JAX package's (`g16toy`),
+    verified, a wrong public input rejected.  `pending`: g16_host_work's
+    futures.  Returns the reveal's launches, the kernels' g16_* fields and
+    the profile's sums."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.curve import babyjubjub as bjj
+    from uzkge_tpu_torch.groth16 import ark_pk, groth16 as g16, reveal
+    from uzkge_tpu_torch.groth16.ark_r1cs import synthesize_reveal
+    from uzkge_tpu_torch.groth16.r1cs import chain_circuit
+    from uzkge_tpu_torch.shuffle import sdk
+    from uzkge_tpu_torch.shuffle.primitives import Ciphertext
+    from uzkge_tpu_torch.utils.chacha import ChaCha20Rng
+
+    t_phase = time.perf_counter()
+    apk, load_s = pending["pk"].result()
+    ark_pk._CACHED = apk  # load_reference_groth16_pk() hands it out from here on
+    log(f"groth16: the embedded reveal proving key (groth16_pk.bin: domain {apk.domain_size}, "
+        f"{apk.num_instance} instance columns, {apk.num_witness} witnesses) loaded in a worker "
+        f"process in {load_s:.3f} s of host time, overlapped with the earlier phases")
+    golden = goldens["reveal"]
+    seed = golden["seed"]
+    sk, e1 = reveal.seeded_reveal(random.Random(seed))
+    pk_pt = bjj.mul(bjj.GENERATOR, sk)
+
+    def prove():
+        return reveal.prove_reveal_onchain(sk, e1, rng=random.Random(seed), device=dev)
+
+    with NttShapes() as shapes:
+        (reveal_pt, proof), latency, launches, stages = run_timed(
+            prove, "reveal (prove_reveal_onchain, first: the MSM bases made)")
+    missing = [k for k in G16_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the reveal launched no {missing}")
+    log("ntt_pass shapes of the reveal (OUT, S, IN, pre, post, const): launches " +
+        json.dumps({str(k): v for k, v in sorted(shapes.counts.items())}))
+    check_digest(g16_words(reveal.onchain_words(reveal_pt, proof)), golden, "reveal")
+    bad = ((reveal_pt[0] + 1) % R_MOD, reveal_pt[1])
+    ok = reveal.verify_reveal_onchain(e1, reveal_pt, pk_pt, proof)
+    ok_bad = reveal.verify_reveal_onchain(e1, bad, pk_pt, proof)
+    if not ok or ok_bad:
+        raise AssertionError(f"verify_reveal_onchain gave {ok} on the reveal, {ok_bad} on the "
+                             "reveal point changed by one")
+    log("verify_reveal_onchain: the reveal accepted, the reveal point changed by one rejected")
+    prof = profile_fn(prove, latency, "reveal (second: the bases cached)")
+
+    masked = Ciphertext.encrypt(bjj.mul(bjj.GENERATOR, 17), pk_pt, random.Random(seed + 1)
+                                .randrange(1, bjj.ORDER))
+    t0 = time.perf_counter()
+    out = sdk.reveal_card_with_snark(sdk.scalar_to_hex(sk), sdk.masked_card_serialize(masked),
+                                     device=dev)
+    sdk_s = time.perf_counter() - t0
+    w = [sdk.hex_to_scalar(x) for x in out["snark_proof"]]
+    sdk_pt = sdk.hex_to_point(out["card"])
+    sdk_proof = ((w[0], w[1]), ((w[3], w[2]), (w[5], w[4])), (w[6], w[7]))
+    if (sdk_pt != bjj.mul(masked.e1, sk)
+            or not reveal.verify_reveal_onchain(masked.e1, sdk_pt, pk_pt, sdk_proof)):
+        raise AssertionError("sdk.reveal_card_with_snark's proof does not verify")
+    log(f"sdk.reveal_card_with_snark on the card (the bases cached): {sdk_s:.3f} s; its proof "
+        "verifies")
+
+    cs = synthesize_reveal(sk, e1, reveal_pt, pk_pt)
+    res = check_g16_msms(dev, apk, cs, rate)
+    ntt = time_ntt_shapes(dev, shapes.counts, rate, errs)
+    res["ntt_pass"] = {"g16_events_ms": ntt["ms"], "g16_plain_ms": ntt["plain_ms"],
+                       "g16_bound_ms": ntt["bound_ms"]}
+
+    toy = goldens["g16toy"]
+    tpk, setup_s = pending["toy"].result()
+    tcs = chain_circuit(toy["products"], random.Random(toy["seed"]).randrange(1, R_MOD))
+    tproof, tlat, tlaunch, _ = run_timed(
+        lambda: g16.prove(tpk, tcs, rng=ChaCha20Rng(toy["seed"].to_bytes(32, "little")),
+                          device=dev),
+        f"groth16.prove (own shape: {toy['products']}-product chain, domain {tpk.domain_size})")
+    missing = [k for k in G16_KERNELS if tlaunch[k] <= 0]
+    if missing:
+        raise AssertionError(f"the own-shape proof launched no {missing}")
+    check_digest(g16_words(tproof.to_solidity_words()), toy, "g16toy")
+    public = tcs.public_inputs()
+    ok = g16.verify(tpk.vk, public, tproof)
+    ok_bad = g16.verify(tpk.vk, [public[0], (public[1] + 1) % R_MOD], tproof)
+    if not ok or ok_bad:
+        raise AssertionError(f"groth16.verify gave {ok} on the own-shape proof, {ok_bad} with a "
+                             "wrong public input")
+    log(f"groth16 own shape: setup {setup_s:.3f} s (host, in a worker process), prove {tlat:.3f} "
+        "s on the card; verify accepts it and rejects a wrong public input")
+    log(f"groth16 phase: {time.perf_counter() - t_phase:.1f} s")
+    for k in G16_KERNELS:
+        res[k]["g16_launches"] = launches[k]
+        names = PROFILE_NAMES.get(k, (f"{k}_kernel",))
+        res[k]["g16_proof_ms"] = sum(prof[n][0] for n in names if n in prof) if prof else None
+    res["reveal_s"] = latency
+    return res
+
+
 # the wrappers' kernels as the profiles name them
 PROFILE_NAMES = {"msm_bucket_accumulate": ACC_KERNELS, "fq_batch_inv": (
     "fq_inv_down_kernel", "fq_inv_root_kernel", "fq_inv_up_kernel")}
@@ -1972,20 +2200,31 @@ def main():
         print("chip_smoke: no CUDA card; this smoke run needs one", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, ROOT)
-    from uzkge_tpu_torch import kernels  # fails outside a checkout of the repo
+    import uzkge_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     dev = torch.device("cuda:0")
     start = time.perf_counter()
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    with open(GOLDEN) as f:
+        goldens = json.load(f)
+    pool, pending = g16_host_work(goldens)
+    try:
+        run_phases(dev, goldens, start, pending)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def run_phases(dev, goldens, start, pending):
+    """Phases 2 to 10 (the kernel build on); `pending`: g16_host_work's
+    futures."""
+    from uzkge_tpu_torch import kernels
+
     t0 = time.perf_counter()
     kernels.build(verbose=True)
     kernels.library()
     log(f"kernel build + load: {time.perf_counter() - t0:.3f} s")
-
-    with open(GOLDEN) as f:
-        goldens = json.load(f)
     golden = goldens["52"]
     rng = random.Random(golden["seed"])
     rate = imul_rate()
@@ -2024,6 +2263,7 @@ def main():
     del tbl, sc
     mm = matchmaking_path(dev, goldens["mm50"], rate, errs, rng, ctx["ntt_shapes"])
     sdk_path(ctx)
+    g16 = groth16_path(dev, goldens, rate, errs, pending)
     prof_vb = ctx["profile_vb"]
     for res, names, prof_route in ((acc, ACC_KERNELS, prof_vb),
                                    (red, ("msm_bucket_reduce_kernel",), prof_vb),
@@ -2063,6 +2303,7 @@ def main():
     ]
     for name, _, _, res in rows:
         res.update(matchmaking_row(name, mm))
+        res.update(g16.get(name, {}))
     out = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **res}

@@ -15,6 +15,7 @@ package, exactly.
     prover params: the card's smoke run drives them.)
 """
 
+import inspect
 import random
 
 import pytest
@@ -130,7 +131,10 @@ def test_sdk_host_functions_match_jax(monkeypatch):
     assert t == _sdk_flow(jsdk, 2)
     assert t["indices"] == [0, 1]
     assert tsdk._RNG.random() == jsdk._RNG.random()  # the same number of draws
-    assert not hasattr(tsdk, "reveal_card_with_snark")
+    # the Groth16 reveal (tests/test_torch_groth16_ark.py): the JAX
+    # package's arguments, then the device its MSMs and NTTs run on
+    assert list(inspect.signature(tsdk.reveal_card_with_snark).parameters) == [
+        *inspect.signature(jsdk.reveal_card_with_snark).parameters, "device"]
 
 
 def test_sdk_default_rng_is_a_csprng():

@@ -6,6 +6,17 @@ commits (UZKGE_FB=0) and writes its sha256 to tests/data/torch_golden.json:
 
     UZKGE_FB=0 JAX_PLATFORMS=cpu python tests/torch_golden.py 52
     UZKGE_FB=0 JAX_PLATFORMS=cpu python tests/torch_golden.py mm50
+
+`reveal` is the seeded Groth16 reveal for the deployed verifier
+(`prove_reveal_onchain` on the embedded proving key, host code throughout);
+`g16toy` the own-shape Groth16 `setup` + `prove` of a 700-product chain
+(domain 1024) with every MSM on the JAX package's host Pippenger (its
+device route drops chunks at this n: ROADMAP queue 3), `g16toy64` that of
+a 40-product chain (domain 64):
+
+    UZKGE_FB=0 JAX_PLATFORMS=cpu python tests/torch_golden.py reveal
+    UZKGE_FB=0 JAX_PLATFORMS=cpu python tests/torch_golden.py g16toy
+    UZKGE_FB=0 JAX_PLATFORMS=cpu python tests/torch_golden.py g16toy64
 """
 
 import hashlib
@@ -18,6 +29,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden.json")
 SEED = 52
+G16TOY = {"products": 700, "setup_seed": "uzkge-tpu groth16 toy"}  # domain 1024
+G16TOY64 = {"products": 40, "setup_seed": "uzkge-tpu groth16 toy"}  # domain 64
 
 
 def proof_digest(app, refresh, n_cards: int, seed: int = SEED, **params) -> str:
@@ -57,12 +70,79 @@ def matchmaking_digest(app, n: int, seed: int = SEED, **params):
     return hashlib.sha256(proof_to_bytes_be(proof, with_shuffle=False)).hexdigest(), pp
 
 
+def words_digest(words) -> str:
+    """sha256 of field elements as 32-byte big-endian words (Solidity's)."""
+    return hashlib.sha256(b"".join(int(w).to_bytes(32, "big") for w in words)).hexdigest()
+
+
+def reveal_digest(reveal, seed: int = SEED, **kw):
+    """sha256 of the on-chain words (proof, then reveal point) of the seeded
+    reveal made by `reveal` (either package's groth16.reveal module): sk and
+    e1 from the port's seeded_reveal(random.Random(seed)), the proof's r and
+    s from another random.Random(seed); `kw` go to prove_reveal_onchain
+    (device="cpu" for the port).  Also returns (sk, e1, reveal point, proof)."""
+    from uzkge_tpu_torch.groth16.reveal import onchain_words, seeded_reveal
+
+    sk, e1 = seeded_reveal(random.Random(seed))
+    reveal_pt, proof = reveal.prove_reveal_onchain(sk, e1, rng=random.Random(seed), **kw)
+    return words_digest(onchain_words(reveal_pt, proof)), (sk, e1, reveal_pt, proof)
+
+
+def g16toy_circuit(seed: int = SEED, products: int = G16TOY["products"]):
+    """The port's R1CS of the seeded toy: chain_circuit(products, x), x drawn
+    from random.Random(seed)."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.groth16.r1cs import chain_circuit
+
+    return chain_circuit(products, random.Random(seed).randrange(1, R_MOD))
+
+
+def to_jax_r1cs(cs):
+    """The same constraint system as the JAX package's R1CS."""
+    from uzkge_tpu.groth16.r1cs import LC, R1CS
+
+    out = R1CS()
+    out.num_instance = cs.num_instance
+    out.assignment = list(cs.assignment)
+    out.instance_ids = list(cs.instance_ids)
+    out.witness_ids = list(cs.witness_ids)
+    out.constraints = [tuple(LC(lc) for lc in row) for row in cs.constraints]
+    return out
+
+
+def g16_rng(seed: int = SEED):
+    """The prover's ChaCha20Rng for a seed (either package's accepts it)."""
+    from uzkge_tpu_torch.utils.chacha import ChaCha20Rng
+
+    return ChaCha20Rng(seed.to_bytes(32, "little"))
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "52"
     assert os.environ.get("UZKGE_FB") == "0", "run with UZKGE_FB=0"
     sys.path.insert(0, ROOT)
     t0 = time.time()
-    if mode.startswith("mm"):
+    extra = {}
+    if mode == "reveal":
+        from uzkge_tpu.groth16 import reveal
+        from uzkge_tpu.groth16.reveal import verify_reveal_onchain
+
+        digest, (sk, e1, reveal_pt, proof) = reveal_digest(reveal)
+        from uzkge_tpu.curve import babyjubjub as bjj
+
+        assert verify_reveal_onchain(e1, reveal_pt, bjj.mul(bjj.GENERATOR, sk), proof)
+    elif mode in ("g16toy", "g16toy64"):
+        import uzkge_tpu.msm.msm as jmsm
+        from uzkge_tpu.groth16 import groth16 as jg
+
+        jmsm.HOST_MSM_MAX = 10**9  # the host Pippenger for every MSM
+        extra = dict(G16TOY if mode == "g16toy" else G16TOY64)
+        cs = to_jax_r1cs(g16toy_circuit(products=extra["products"]))
+        pk = jg.setup(cs, seed=extra["setup_seed"].encode())
+        proof = jg.prove(pk, cs, rng=g16_rng())
+        assert jg.verify(pk.vk, cs.public_inputs(), proof)
+        digest = words_digest(proof.to_solidity_words())
+    elif mode.startswith("mm"):
         from uzkge_tpu.matchmaking import app
 
         digest, _ = matchmaking_digest(app, int(mode[2:]))
@@ -77,6 +157,7 @@ def main():
         "seed": SEED,
         "command": f"UZKGE_FB=0 JAX_PLATFORMS=cpu python tests/torch_golden.py {mode}",
         "seconds_on_cpu": round(time.time() - t0, 1),
+        **extra,
     }
     with open(GOLDEN, "w") as f:
         json.dump(rec, f, indent=1, sort_keys=True)

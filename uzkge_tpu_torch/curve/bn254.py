@@ -85,6 +85,9 @@ def fq2_inv(a):
 
 FQ2_ZERO = (0, 0)
 
+# b' = 3 / (9 + u)
+G2_B = fq2_mul((3, 0), fq2_inv((9, 1)))
+
 # ------------------------------ G2 (affine over Fq2) -----------------------
 
 G2_GEN = (G2_GENERATOR_X, G2_GENERATOR_Y)

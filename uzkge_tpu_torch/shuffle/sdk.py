@@ -1,11 +1,11 @@
 """Stringly-typed game SDK on the torch prover, a copy of
-`uzkge_tpu/shuffle/sdk.py` but for the Groth16 reveal (which waits for the
-port's Groth16 prover), mirroring the reference's `shuffle/src/sdk.rs`
-surface (and the WASM bindings' names): a stateful, hex-I/O API covering the
-whole game flow
+`uzkge_tpu/shuffle/sdk.py` whose proving entry points take a `device`,
+mirroring the reference's `shuffle/src/sdk.rs` surface (and the WASM
+bindings' names): a stateful, hex-I/O API covering the whole game flow
 
   init_prover_key -> aggregate_keys -> refresh_joint_key -> init_masked_cards
-  -> shuffle_cards -> verify_shuffled_cards -> reveal_card -> unmask_card
+  -> shuffle_cards -> verify_shuffled_cards -> reveal_card
+  (or reveal_card_with_snark) -> unmask_card
 
 Card index <-> point mapping uses the 54-entry deck table
 (shuffle/src/card_maps.rs via constants/card_maps.py).
@@ -179,6 +179,25 @@ def reveal_card(sk: str, card: List[str]) -> dict:
     masked = masked_card_deserialize(card)
     share, proof = app.reveal(_RNG, keypair, masked)
     return {"card": point_to_hex(share), "proof": "0x" + proof.to_uncompress().hex()}
+
+
+def reveal_card_with_snark(sk: str, card: List[str], device=None) -> dict:
+    """Reveal share plus a Groth16 proof the DEPLOYED Groth16Verifier.sol
+    accepts (sdk.rs:288-326).  snark_proof word order matches the contract
+    calldata: [a.x, a.y, b.x.c1, b.x.c0, b.y.c1, b.y.c0, c.x, c.y].  The
+    proof's witness map and G1 MSMs run on `device` (the card by default)."""
+    from ..groth16.reveal import prove_reveal_onchain
+
+    secret = hex_to_scalar(sk)
+    masked = masked_card_deserialize(card)
+    reveal_pt, (A, B, C) = prove_reveal_onchain(secret, masked.e1, rng=_RNG, device=device)
+    snark_proof = [
+        scalar_to_hex(A[0]), scalar_to_hex(A[1]),
+        scalar_to_hex(B[0][1]), scalar_to_hex(B[0][0]),
+        scalar_to_hex(B[1][1]), scalar_to_hex(B[1][0]),
+        scalar_to_hex(C[0]), scalar_to_hex(C[1]),
+    ]
+    return {"card": point_to_hex(reveal_pt), "snark_proof": snark_proof}
 
 
 def verify_revealed_card(pk: str, card: List[str], reveal: dict) -> bool:

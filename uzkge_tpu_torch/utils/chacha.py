@@ -63,6 +63,13 @@ class ChaCha20Rng:
         hi = self.next_u32()
         return lo | (hi << 32)
 
+    def fill_bytes(self, n: int) -> bytes:
+        # rand_core fills from u32 words, little-endian
+        out = bytearray()
+        while len(out) < n:
+            out += self.next_u32().to_bytes(4, "little")
+        return bytes(out[:n])
+
     # --- arkworks samplers -------------------------------------------------
 
     def ark_fr(self, modulus: int, n_limbs: int = 4) -> int:

@@ -105,6 +105,61 @@ def ark_g2_uncompressed_read(b: bytes):
     return ((xc0, xc1), (yc0, yc1))
 
 
+def _fq2_is_negative(y) -> bool:
+    """ark QuadExtField ordering: compare c1 first, then c0."""
+    ny = ((Q_MOD - y[0]) % Q_MOD, (Q_MOD - y[1]) % Q_MOD)
+    if y[1] != ny[1]:
+        return y[1] > ny[1]
+    return y[0] > ny[0]
+
+
+def _fq2_sqrt(a):
+    """Square root in Fq2 = Fq[u]/(u^2+1) (ark-ff `QuadExtField::sqrt`):
+    via the norm c0^2 + c1^2; returns None when `a` is a non-residue."""
+    c0, c1 = a[0] % Q_MOD, a[1] % Q_MOD
+    if c1 == 0:
+        s = Fq.sqrt(c0)
+        if s is not None:
+            return (s, 0)
+        s = Fq.sqrt((Q_MOD - c0) % Q_MOD)  # (t*u)^2 = -t^2
+        return None if s is None else (0, s)
+    delta = Fq.sqrt((c0 * c0 + c1 * c1) % Q_MOD)
+    if delta is None:
+        return None
+    inv2 = (Q_MOD + 1) // 2
+    x0 = (c0 + delta) * inv2 % Q_MOD
+    s0 = Fq.sqrt(x0)
+    if s0 is None:
+        x0 = (c0 - delta) % Q_MOD * inv2 % Q_MOD
+        s0 = Fq.sqrt(x0)
+        if s0 is None:
+            return None
+    s1 = c1 * pow(2 * s0 % Q_MOD, Q_MOD - 2, Q_MOD) % Q_MOD
+    return (s0, s1)
+
+
+def ark_g2_compressed_read(b: bytes):
+    """64 bytes: x.c0 LE32 || x.c1 LE32, flags on byte 63 (bit7: y 'negative'
+    under the (c1, c0)-lexicographic QuadExtField ordering; bit6: infinity)."""
+    if len(b) != 64:
+        raise DeserializationError("ark G2 compressed needs 64 bytes")
+    top = b[63]
+    infinity = bool(top & _INF_FLAG)
+    negative = bool(top & _NEG_FLAG)
+    xc0 = int.from_bytes(b[:32], "little")
+    xc1 = int.from_bytes(b[32:63] + bytes([top & 0x3F]), "little")
+    if infinity:
+        return None
+    from ..curve.bn254 import G2_B, fq2_add, fq2_mul
+
+    x = (xc0, xc1)
+    y = _fq2_sqrt(fq2_add(fq2_mul(fq2_mul(x, x), x), G2_B))
+    assert y is not None, "invalid compressed G2 x-coordinate"
+    if _fq2_is_negative(y) != negative:
+        y = ((Q_MOD - y[0]) % Q_MOD, (Q_MOD - y[1]) % Q_MOD)
+    return (x, y)
+
+
 def ark_fr_read(b: bytes) -> int:
     if len(b) != 32:
         raise DeserializationError(f"Fr needs 32 bytes, got {len(b)}")
