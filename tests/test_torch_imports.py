@@ -87,8 +87,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "uzkge_tpu"), (path, mod)
     assert {m.name for m in pkgutil.iter_modules([PORT])} >= {
-        "constants", "curve", "ff", "hash", "msm", "ntt", "parallel", "pcs", "plonk", "shuffle",
-        "utils", "errors", "native_host", "gen_params", "device", "kernels"}
+        "constants", "curve", "evm", "ff", "hash", "msm", "ntt", "parallel", "pcs", "plonk",
+        "shuffle", "tools", "utils", "errors", "native_host", "gen_params", "device", "kernels"}
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -103,6 +103,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from uzkge_tpu_torch.msm.fixed_base import FixedBaseTable
     from uzkge_tpu_torch.msm.msm import MSMBases
     from uzkge_tpu_torch.ntt.ntt import NTTDomain, get_domain
+    from uzkge_tpu_torch.parallel.batch import prove_shuffle_batch
     from uzkge_tpu_torch.pcs.kzg import KZG
     from uzkge_tpu_torch.shuffle.app import gen_shuffle_prover_params
 
@@ -112,7 +113,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: get_domain(8), lambda: MSMBases(pts), lambda: KZG(pts, []),
                  lambda: load_srs(4096), lambda: FixedBaseTable(pts, c=4, bits=30),
                  lambda: fr.to_mont_limbs([1]), lambda: fq.const(1),
-                 lambda: from_jax_limbs([[0] * 16]), lambda: gen_shuffle_prover_params(1)):
+                 lambda: from_jax_limbs([[0] * 16]), lambda: gen_shuffle_prover_params(1),
+                 lambda: prove_shuffle_batch([None], None, [[]], None, None)):
         with pytest.raises(RuntimeError, match="CUDA card"):
             call()
     assert resolve("cpu") == torch.device("cpu")

@@ -21,6 +21,13 @@ GENERATOR = BJJ_GENERATOR
 ORDER = BJJ_ORDER
 
 
+def is_on_curve(pt):
+    x, y = pt
+    lhs = (A * x * x + y * y) % P
+    rhs = (1 + D * x * x % P * y % P * y) % P
+    return lhs == rhs
+
+
 def add(p1, p2):
     """Complete twisted Edwards addition (works for doubling/identity)."""
     x1, y1 = p1

@@ -17,6 +17,13 @@ Q = Q_MOD
 G1_GEN = G1_GENERATOR
 
 
+def g1_is_on_curve(p):
+    if p is None:
+        return True
+    x, y = p
+    return (y * y - x * x * x - 3) % Q == 0
+
+
 def g1_add(p1, p2):
     if p1 is None:
         return p2
@@ -53,6 +60,17 @@ def g1_mul(p, k: int):
     return acc
 
 
+def g1_msm(points, scalars):
+    """Naive host MSM, for tests and verification (the commits use the
+    Pippenger and the fixed-base table of msm/ on the card)."""
+    acc = None
+    for p, s in zip(points, scalars):
+        if s % R_MOD == 0 or p is None:
+            continue
+        acc = g1_add(acc, g1_mul(p, s))
+    return acc
+
+
 # ------------------------------ Fq2 ----------------------------------------
 
 
@@ -62,6 +80,10 @@ def fq2_add(a, b):
 
 def fq2_sub(a, b):
     return ((a[0] - b[0]) % Q, (a[1] - b[1]) % Q)
+
+
+def fq2_neg(a):
+    return ((-a[0]) % Q, (-a[1]) % Q)
 
 
 def fq2_mul(a, b):
@@ -93,6 +115,15 @@ G2_B = fq2_mul((3, 0), fq2_inv((9, 1)))
 G2_GEN = (G2_GENERATOR_X, G2_GENERATOR_Y)
 
 
+def g2_is_on_curve(p):
+    if p is None:
+        return True
+    x, y = p
+    lhs = fq2_mul(y, y)
+    rhs = fq2_add(fq2_mul(fq2_mul(x, x), x), G2_B)
+    return lhs == rhs
+
+
 def g2_add(p1, p2):
     if p1 is None:
         return p2
@@ -109,6 +140,12 @@ def g2_add(p1, p2):
     x3 = fq2_sub(fq2_sub(fq2_mul(lam, lam), x1), x2)
     y3 = fq2_sub(fq2_mul(lam, fq2_sub(x1, x3)), y1)
     return (x3, y3)
+
+
+def g2_neg(p):
+    if p is None:
+        return None
+    return (p[0], fq2_neg(p[1]))
 
 
 def g2_mul(p, k: int):

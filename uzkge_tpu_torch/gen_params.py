@@ -20,12 +20,16 @@ PARAMS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file
                           "uzkge_tpu", "parameters")
 
 
+def _read(name: str) -> bytes:
+    with open(os.path.join(PARAMS_DIR, name), "rb") as f:
+        return f.read()
+
+
 def _read_required(name: str, err_cls) -> bytes:
     path = os.path.join(PARAMS_DIR, name)
     if not os.path.exists(path):
         raise err_cls(f"embedded parameter file {name} not found")
-    with open(path, "rb") as f:
-        return f.read()
+    return _read(name)
 
 
 _SRS_CACHE: dict = {}

@@ -18,6 +18,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -40,6 +41,7 @@ LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
 CALLS = {}
 
 _lib = None
+_LIB_LOCK = threading.Lock()  # the first build and load, once for all threads
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,7 +112,8 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(so) and os.path.getmtime(so) >= max(map(os.path.getmtime, deps)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc, tag = _nvcc(), os.getpid()
+    # object files unique per process and per thread
+    nvcc, tag = _nvcc(), f"{os.getpid()}.{threading.get_ident()}"
     objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o") for s in SOURCES]
     procs = []
     for src, obj in zip(srcs, objs):
@@ -143,15 +146,18 @@ def build(verbose: bool = False) -> str:
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, by one thread while
+    the others wait)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        with _LIB_LOCK:
+            if _lib is None:
+                lib = ctypes.CDLL(build())
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = lib
     return _lib
 
 

@@ -11,6 +11,8 @@ device.  Coset scales (k^j before an fft, n^-1 k^-j after an ifft) ride as
 pre / post ladders of the passes; the plain ifft's n^-1 rides as a constant.
 """
 
+import threading
+
 import torch
 
 from ..device import resolve
@@ -128,14 +130,17 @@ class NTTDomain:
 
 
 _DOMAINS = {}
+_DOMAINS_LOCK = threading.Lock()
 
 
 def get_domain(n: int, device=None) -> NTTDomain:
-    """The cached size-n domain on `device`."""
+    """The cached size-n domain on `device`, made once even when threads ask
+    at once (parallel/batch.py)."""
     dev = resolve(device)
     key = (n, str(dev))
-    dom = _DOMAINS.get(key)
-    if dom is None:
-        dom = NTTDomain(n, dev)
-        _DOMAINS[key] = dom
+    with _DOMAINS_LOCK:
+        dom = _DOMAINS.get(key)
+        if dom is None:
+            dom = NTTDomain(n, dev)
+            _DOMAINS[key] = dom
     return dom

@@ -16,6 +16,7 @@ parallel/sharded.py on every rank, before any other route: over the proof
 axis when the batch divides among the ranks, else over the point axis.
 """
 
+import threading
 from typing import List, Optional
 
 import torch
@@ -77,6 +78,9 @@ class KZG:
         self.max_contig = contig
         self._coef_bases = None
         self._lagrange = None
+        # the lazy table and MSM bases are built once, also when the threads
+        # of parallel/batch.py commit through one KZG at once
+        self._lazy_lock = threading.Lock()
         if lagrange_bases is not None:
             self.set_lagrange(lagrange_bases)
 
@@ -120,9 +124,11 @@ class KZG:
         (kzg_poly_commitment.rs:290: one table serves every commit)."""
         if self._lagrange is None:
             raise ValueError("this KZG has no Lagrange bases")
-        if self._lagrange_fb is None:
-            self._lagrange_fb = FixedBaseTable(self._lagrange_points,
-                                               c=_fb_window(self._lagrange_n), device=self.device)
+        with self._lazy_lock:
+            if self._lagrange_fb is None:
+                self._lagrange_fb = FixedBaseTable(self._lagrange_points,
+                                                   c=_fb_window(self._lagrange_n),
+                                                   device=self.device)
         return self._lagrange_fb
 
     def uses_fixed_base(self) -> bool:
@@ -134,9 +140,16 @@ class KZG:
         return _fb_enabled(self.lagrange_n, self.device)
 
     def _coef_msm_bases(self):
-        if self._coef_bases is None:
-            self._coef_bases = MSMBases(self.g1_powers[: self.max_contig], self.device)
+        with self._lazy_lock:
+            if self._coef_bases is None:
+                self._coef_bases = MSMBases(self.g1_powers[: self.max_contig], self.device)
         return self._coef_bases
+
+    def _lagrange_msm_bases(self):
+        with self._lazy_lock:
+            if self._lagrange_vb is None:
+                self._lagrange_vb = MSMBases(self._lagrange_points, self.device)
+        return self._lagrange_vb
 
     # ------------------------------------------------------------ committing
 
@@ -159,9 +172,7 @@ class KZG:
             return _extract_host(*self._sharded_commit(batch))
         if self.uses_fixed_base():
             return self.lagrange_fb_table().msm_mont(batch)
-        if self._lagrange_vb is None:
-            self._lagrange_vb = MSMBases(self._lagrange_points, self.device)
-        return msm(self._lagrange_vb, batch)
+        return msm(self._lagrange_msm_bases(), batch)
 
     def _sharded_commit(self, batch):
         """Projective sums of a (P, n, 8) batch through the sharded chain MSM

@@ -224,8 +224,9 @@ def refresh_prover_params_public_key(pp: ProverParams, cs: TurboCS, kzg, shuffle
     pp.q_pk_coefs = coefs
     pp.q_pk_coset = coset
     pp.verifier_params.cm_shuffle_public_key_vec = cms
-    if hasattr(pp, "_coef_blob_cache"):  # the prover's static-blob cache is stale
-        delattr(pp, "_coef_blob_cache")
+    for stale in ("_coef_blob_cache", "_device_replicas"):  # the prover's blobs, batch.py's copies
+        if hasattr(pp, stale):
+            delattr(pp, stale)
     return cms
 
 

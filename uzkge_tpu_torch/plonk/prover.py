@@ -19,6 +19,7 @@ Randomness: the caller's `random.Random`; the proof is a deterministic
 function of it.
 """
 
+import threading
 from typing import List
 
 import torch
@@ -266,9 +267,18 @@ def _fetch_blobs(arrays):
     return out
 
 
+_BLOBS_LOCK = threading.Lock()
+
+
 def _pp_coef_blobs(pp) -> dict:
     """Byte blobs of the proving key's coefficient polynomials, fetched once
-    per ProverParams and cached on it."""
+    per ProverParams and cached on it (under a lock: the threads of
+    parallel/batch.py may share one pp)."""
+    with _BLOBS_LOCK:
+        return _coef_blobs_cached(pp)
+
+
+def _coef_blobs_cached(pp) -> dict:
     got = getattr(pp, "_coef_blob_cache", None)
     if got is None:
         arrays = [pp.q_coefs.reshape(-1, 8), pp.qb_coefs,

@@ -3,7 +3,7 @@
 Covers:
   * big-endian scalar/point codecs used by proofs and the Solidity verifier
     (uzkge/src/utils/serialization.rs:62-111, plonk/indexer.rs:539-732);
-  * arkworks canonical deserialization for BN254 G1/G2/Fr (LE, flags in the
+  * arkworks canonical (de)serialization for BN254 G1/G2/Fr (LE, flags in the
     top bits of the last byte);
   * the unchecked SRS container (kzg_poly_commitment.rs:206-264);
   * a minimal bincode-1.x reader for the embedded vk bins
@@ -52,6 +52,14 @@ def g1_from_uncompress_be(b: bytes):
     return (x, y)
 
 
+def edwards_from_uncompress_be(b: bytes):
+    if len(b) != 64:
+        raise DeserializationError(f"point needs 64 bytes, got {len(b)}")
+    x = int.from_bytes(b[:32], "big")
+    y = int.from_bytes(b[32:], "big")
+    return (x, y)
+
+
 # ---------------------------------------------------------------------------
 # arkworks canonical formats (little-endian + flag bits)
 # ---------------------------------------------------------------------------
@@ -68,6 +76,19 @@ def ark_g1_uncompressed_read(b: bytes):
     if infinity:
         return None
     return (x, y)
+
+
+def ark_g1_uncompressed_write(p) -> bytes:
+    if p is None:
+        out = bytearray(64)
+        out[63] |= _INF_FLAG
+        return bytes(out)
+    x, y = p
+    out = bytearray(int(x).to_bytes(32, "little") + int(y).to_bytes(32, "little"))
+    # ark also stamps the y-sign flag on uncompressed points
+    if not (y <= (Q_MOD - y) % Q_MOD):
+        out[63] |= _NEG_FLAG
+    return bytes(out)
 
 
 def ark_g1_compressed_read(b: bytes):
@@ -90,6 +111,18 @@ def ark_g1_compressed_read(b: bytes):
     return (x, y)
 
 
+def ark_g1_compressed_write(p) -> bytes:
+    if p is None:
+        out = bytearray(32)
+        out[31] |= _INF_FLAG
+        return bytes(out)
+    x, y = p
+    out = bytearray(int(x).to_bytes(32, "little"))
+    if not (y <= (Q_MOD - y) % Q_MOD):
+        out[31] |= _NEG_FLAG
+    return bytes(out)
+
+
 def ark_g2_uncompressed_read(b: bytes):
     """128 bytes: x.c0, x.c1, y.c0, y.c1 (each LE32), flags on byte 127."""
     if len(b) != 128:
@@ -105,12 +138,39 @@ def ark_g2_uncompressed_read(b: bytes):
     return ((xc0, xc1), (yc0, yc1))
 
 
+def ark_g2_uncompressed_write(p) -> bytes:
+    if p is None:
+        out = bytearray(128)
+        out[127] |= _INF_FLAG
+        return bytes(out)
+    (xc0, xc1), (yc0, yc1) = p
+    out = bytearray(
+        b"".join(int(c).to_bytes(32, "little") for c in (xc0, xc1, yc0, yc1))
+    )
+    if _fq2_is_negative((yc0, yc1)):
+        out[127] |= _NEG_FLAG
+    return bytes(out)
+
+
 def _fq2_is_negative(y) -> bool:
     """ark QuadExtField ordering: compare c1 first, then c0."""
     ny = ((Q_MOD - y[0]) % Q_MOD, (Q_MOD - y[1]) % Q_MOD)
     if y[1] != ny[1]:
         return y[1] > ny[1]
     return y[0] > ny[0]
+
+
+def ark_g2_compressed_write(p) -> bytes:
+    """64 bytes: x.c0 LE32 || x.c1 LE32 with flags on byte 63."""
+    if p is None:
+        out = bytearray(64)
+        out[63] |= _INF_FLAG
+        return bytes(out)
+    x, y = p
+    out = bytearray(int(x[0]).to_bytes(32, "little") + int(x[1]).to_bytes(32, "little"))
+    if _fq2_is_negative(y):
+        out[63] |= _NEG_FLAG
+    return bytes(out)
 
 
 def _fq2_sqrt(a):
@@ -160,6 +220,33 @@ def ark_g2_compressed_read(b: bytes):
     return (x, y)
 
 
+def srs_to_unchecked_bytes(g1_points, g2_points) -> bytes:
+    """Inverse of load_srs_unchecked (`KZGCommitmentScheme::to_unchecked_bytes`,
+    kzg_poly_commitment.rs:206-227): u32 len1 | u32 len2 | G1s | G2s."""
+    out = [len(g1_points).to_bytes(4, "little"), len(g2_points).to_bytes(4, "little")]
+    out += [ark_g1_uncompressed_write(p) for p in g1_points]
+    out += [ark_g2_uncompressed_write(p) for p in g2_points]
+    return b"".join(out)
+
+
+def vk_common_to_bytes(g1_points, g2_points) -> bytes:
+    """bincode serialization of the shrunk KZG scheme (`gen-params
+    gen-vk-common`, uzkge/src/gen_params/setup.rs:72-83): two serde byte-blobs
+    each wrapping an ark compressed Vec<point>."""
+    blob1 = len(g1_points).to_bytes(8, "little") + b"".join(
+        ark_g1_compressed_write(p) for p in g1_points
+    )
+    blob2 = len(g2_points).to_bytes(8, "little") + b"".join(
+        ark_g2_compressed_write(p) for p in g2_points
+    )
+    return (
+        len(blob1).to_bytes(8, "little")
+        + blob1
+        + len(blob2).to_bytes(8, "little")
+        + blob2
+    )
+
+
 def ark_fr_read(b: bytes) -> int:
     if len(b) != 32:
         raise DeserializationError(f"Fr needs 32 bytes, got {len(b)}")
@@ -169,8 +256,12 @@ def ark_fr_read(b: bytes) -> int:
     return v
 
 
+def ark_fr_write(v: int) -> bytes:
+    return int(v).to_bytes(32, "little")
+
+
 # ---------------------------------------------------------------------------
-# SRS container (`from_unchecked_bytes`)
+# SRS container (`to/from_unchecked_bytes`)
 # ---------------------------------------------------------------------------
 
 
