@@ -196,7 +196,8 @@ def test_stagetimer_records_prover_stages(both):
     from uzkge_tpu_torch.utils import stagetimer
 
     snap = stagetimer.snapshot()
-    for name in ("r1_commit", "r3_t_kernel", "r5_openings"):
+    for name in ("r1_commit", "r3_t_kernel", "r5_openings", "kzg_msm", "kzg_blind",
+                 "kzg_open_prepare"):
         assert name in snap and snap[name] >= 0
 
 

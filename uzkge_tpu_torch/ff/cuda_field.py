@@ -34,7 +34,7 @@ def fp_mont_mul(ctx: MontField, a, b):
     if out.numel():
         kernels.launch("fp_mont_mul_launch", a.data_ptr(), b.data_ptr(), out.data_ptr(),
                        a.numel() // 8, 0 if ctx is fr else 1, kernels.stream_of(a))
-        kernels.LAUNCHES["fp_mont_mul"] += 1
+        kernels.count("fp_mont_mul")
     return out
 
 
@@ -67,5 +67,5 @@ def fp_mul_chain(ctx: MontField, a, b, iters: int):
     out = torch.empty_like(a)
     kernels.launch("fp_mul_chain_launch", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, iters,
                    0 if ctx is fr else 1, kernels.stream_of(a))
-    kernels.LAUNCHES["fp_mul_chain"] += 1
+    kernels.count("fp_mul_chain")
     return out

@@ -11,7 +11,7 @@ Each C entry point enqueues its kernel on the stream it is given and returns
 ntt/cuda_ntt.py, msm/msm.py, msm/fixed_base.py) check their arguments,
 allocate outputs with torch.empty, pass
 `torch.cuda.current_stream().cuda_stream`, raise on a nonzero return, and
-add one to their entry of LAUNCHES for every kernel launched.
+add one to their entry of LAUNCHES for every kernel launched (`count()`).
 """
 
 import ctypes
@@ -31,7 +31,8 @@ HEADERS = ("field.cuh", "fixed_base.cuh", "fixed_base_query.cuh", "scan_reduce.c
            "ntt.cuh", "msm.cuh", "launch.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 
-# launch counts per kernel: plain integers, reset by reset_launches()
+# launch counts per kernel: plain integers, added to by count() and reset by
+# reset_launches(), both under _COUNT_LOCK so that no thread's count is lost
 LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
             "fp_mont_mul": 0, "fb_bases": 0, "fb_mult_chunk": 0, "fq_batch_inv": 0,
             "fb_select": 0, "fb_pair_den": 0, "fb_pair_combine": 0, "fb_fold": 0,
@@ -39,6 +40,7 @@ LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
 # calls of each C entry point, one CUDA kernel launch each (fq_batch_inv's
 # three kinds of launch apart): counted by launch(), reset by reset_launches()
 CALLS = {}
+_COUNT_LOCK = threading.Lock()
 
 _lib = None
 _LIB_LOCK = threading.Lock()  # the first build and load, once for all threads
@@ -86,9 +88,17 @@ _SIGNATURES = {
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    CALLS.clear()
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        CALLS.clear()
+
+
+def count(name: str, counts: dict = LAUNCHES):
+    """Add one to `counts[name]` (a kernel's LAUNCHES by default) under a
+    lock shared by every thread."""
+    with _COUNT_LOCK:
+        counts[name] = counts.get(name, 0) + 1
 
 
 def _nvcc() -> str:
@@ -166,7 +176,7 @@ def launch(name: str, *args):
     rc = getattr(library(), name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
-    CALLS[name] = CALLS.get(name, 0) + 1
+    count(name, CALLS)
 
 
 def use_kernel(dev: torch.device, name: str) -> bool:

@@ -261,7 +261,7 @@ def fb_bases(x, y, W: int, c: int):
     out = tuple(torch.empty((W * n, 8), dtype=torch.int32, device=dev) for _ in range(3))
     kernels.launch("fb_bases_launch", x.data_ptr(), y.data_ptr(), *(o.data_ptr() for o in out),
                    n, W, c, kernels.stream_of(x))
-    kernels.LAUNCHES["fb_bases"] += 1
+    kernels.count("fb_bases")
     return out
 
 
@@ -281,7 +281,7 @@ def fb_mult_chunk(tx, ty, tz, bx, by, CH: int):
         tuple(torch.empty((K, 8), dtype=torch.int32, device=dev) for _ in range(3))
     kernels.launch("fb_mult_chunk_launch", *(t.data_ptr() for t in (tx, ty, tz, bx, by)),
                    *(o.data_ptr() for o in out), K, CH, kernels.stream_of(tx))
-    kernels.LAUNCHES["fb_mult_chunk"] += 1
+    kernels.count("fb_mult_chunk")
     return out
 
 
@@ -312,7 +312,7 @@ def fq_batch_inv(a):
     if not kernels.use_kernel(dev, "fq_batch_inv"):
         return fq_batch_inv_plain(a)
     out = _batch_inv_launches(a, batch_inv_levels(N))
-    kernels.LAUNCHES["fq_batch_inv"] += 1
+    kernels.count("fq_batch_inv")
     return out
 
 
@@ -367,7 +367,7 @@ def fb_select(digits, table):
     inf = torch.empty((P, K), dtype=torch.int32, device=dev)
     kernels.launch("fb_select_launch", table.data_ptr(), digits.data_ptr(), x.data_ptr(),
                    y.data_ptr(), inf.data_ptr(), P, K, D, kernels.stream_of(digits))
-    kernels.LAUNCHES["fb_select"] += 1
+    kernels.count("fb_select")
     return x, y, inf
 
 
@@ -388,7 +388,7 @@ def fb_pair_den(x, inf):
     flags = torch.empty((P, H), dtype=torch.int32, device=dev)
     kernels.launch("fb_pair_den_launch", x.data_ptr(), inf.data_ptr(), den.data_ptr(),
                    flags.data_ptr(), P, H, kernels.stream_of(x))
-    kernels.LAUNCHES["fb_pair_den"] += 1
+    kernels.count("fb_pair_den")
     return den, flags
 
 
@@ -409,7 +409,7 @@ def fb_pair_combine(x, y, dinv, flags):
     kernels.launch("fb_pair_combine_launch", x.data_ptr(), y.data_ptr(), dinv.data_ptr(),
                    flags.data_ptr(), xo.data_ptr(), yo.data_ptr(), info.data_ptr(), P, H,
                    kernels.stream_of(x))
-    kernels.LAUNCHES["fb_pair_combine"] += 1
+    kernels.count("fb_pair_combine")
     return xo, yo, info
 
 
@@ -430,7 +430,7 @@ def fb_fold(X, Y, Z, w: int):
     out = tuple(torch.empty((P, Kc // w, 8), dtype=torch.int32, device=dev) for _ in range(3))
     kernels.launch("fb_fold_launch", X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
                    *(o.data_ptr() for o in out), P * (Kc // w), w, kernels.stream_of(X))
-    kernels.LAUNCHES["fb_fold"] += 1
+    kernels.count("fb_fold")
     return out
 
 
@@ -486,7 +486,7 @@ def scan_leaf_reduce(ax, ay, digits, n: int, S: int):
     out = tuple(torch.empty((P * (K // S), 8), dtype=torch.int32, device=dev) for _ in range(3))
     kernels.launch("scan_leaf_reduce_launch", ax.data_ptr(), ay.data_ptr(), digits.data_ptr(),
                    *(o.data_ptr() for o in out), P, K, n, S, kernels.stream_of(digits))
-    kernels.LAUNCHES["scan_leaf_reduce"] += 1
+    kernels.count("scan_leaf_reduce")
     return out
 
 
@@ -510,7 +510,7 @@ def scan_proj_reduce(X, Y, Z, S: int):
     out = tuple(torch.empty((N // S, 8), dtype=torch.int32, device=dev) for _ in range(3))
     kernels.launch("scan_proj_reduce_launch", X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
                    *(o.data_ptr() for o in out), N // S, S, kernels.stream_of(X))
-    kernels.LAUNCHES["scan_proj_reduce"] += 1
+    kernels.count("scan_proj_reduce")
     return out
 
 

@@ -260,7 +260,7 @@ def msm_bucket_accumulate(bx, by, std, L: int):
     kernels.launch("msm_bucket_accumulate_launch", bx.data_ptr(), by.data_ptr(), std.data_ptr(),
                    buckets.data_ptr(), idx.data_ptr(), meta.data_ptr(), extra.data_ptr(), P, n,
                    L, kernels.stream_of(std))
-    kernels.LAUNCHES["msm_bucket_accumulate"] += 1
+    kernels.count("msm_bucket_accumulate")
     return buckets
 
 
@@ -277,7 +277,7 @@ def msm_bucket_reduce(buckets):
     done = torch.zeros(P * N_WINDOWS, dtype=torch.int32, device=dev)
     kernels.launch("msm_bucket_reduce_launch", buckets.data_ptr(), out.data_ptr(),
                    part.data_ptr(), done.data_ptr(), P, K, kernels.stream_of(buckets))
-    kernels.LAUNCHES["msm_bucket_reduce"] += 1
+    kernels.count("msm_bucket_reduce")
     return out
 
 

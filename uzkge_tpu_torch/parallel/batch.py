@@ -17,11 +17,14 @@ the same host points and commit route, which builds its own table on its
 first commit.  The pairs live on `pp`, one per device, made once under a
 lock; for the device `kzg` is on, the pair is (pp, kzg) themselves.
 
-Process-wide counters mix a threaded batch's proofs: the stage timer
-(utils/stagetimer.py) sums every thread's stages, and `stage(block=...)`
-waits for the whole device, so a stage in one thread also waits for the
-other thread's kernels; `kernels.LAUNCHES` may lose an increment when two
-threads add at once.  Read from a batch only that a kernel was launched.
+What is per thread and what is shared in a threaded batch: a span
+(utils/stagetimer.py) nests only under the spans of its own thread, and
+`recording()` tags each span with its thread; `kernels.LAUNCHES` and
+`kernels.CALLS` count every launch of every thread, under a lock.  But
+`stagetimer.snapshot()` sums the seconds of all threads' spans of a name,
+the counters do not say which thread launched, and `stage(block=...)` still
+waits for the whole device, so a span in one thread also waits for the
+other threads' kernels.
 """
 
 import contextlib

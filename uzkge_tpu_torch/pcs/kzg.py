@@ -10,6 +10,12 @@ semantics are the reference's (kzg_poly_commitment.rs / pcs.rs): Lagrange-basis 
 prefix, the batch_prove alpha-combination and one multi-pairing check.
 Opening arithmetic and pairings stay on the host (native_host, pcs/pairing).
 
+Spans (utils/stagetimer.py), nested in the prover's stages: `kzg_msm` is a
+commit's whole MSM on whichever route serves it, from the digit recode
+through the read-back to host affine points; `kzg_blind` is
+`apply_blind_factors`; `kzg_open_prepare` is `batch_prove_multi`'s host
+phase (`_prepare_open`: transcript, alpha combination, division).
+
 A KZG given a torch.distributed process group (`group=`, the JAX package's
 UZKGE_MESH=1) commits in the Lagrange basis through the sharded chain MSM of
 parallel/sharded.py on every rank, before any other route: over the proof
@@ -33,6 +39,7 @@ from ..msm.fixed_base import FixedBaseTable, _extract_host
 from ..msm.msm import MSMBases, msm
 from ..ntt.ntt import get_domain
 from ..parallel.sharded import sharded_msm_batch, sharded_msm_device_sums
+from ..utils.stagetimer import stage
 from ..utils.transcript import Transcript
 from .pairing import multi_pairing_is_one
 
@@ -159,20 +166,22 @@ class KZG:
             raise DegreeError(
                 f"degree {len(coefs) - 1} exceeds contiguous SRS prefix {self.max_contig - 1}"
             )
-        bases = self._coef_msm_bases()
-        padded = list(coefs) + [0] * (bases.n - len(coefs))
-        return msm(bases, padded)
+        with stage("kzg_msm"):
+            bases = self._coef_msm_bases()
+            padded = list(coefs) + [0] * (bases.n - len(coefs))
+            return msm(bases, padded)
 
     def commit_evals_batch(self, evals):
         """Lagrange-basis commits of a (P, n, 8) batch of Montgomery
         evaluations on the device -> list of host affine points."""
         assert self._lagrange is not None
-        batch = (evals if evals.dim() == 3 else evals[None]).contiguous()
-        if self.group is not None:
-            return _extract_host(*self._sharded_commit(batch))
-        if self.uses_fixed_base():
-            return self.lagrange_fb_table().msm_mont(batch)
-        return msm(self._lagrange_msm_bases(), batch)
+        with stage("kzg_msm"):
+            batch = (evals if evals.dim() == 3 else evals[None]).contiguous()
+            if self.group is not None:
+                return _extract_host(*self._sharded_commit(batch))
+            if self.uses_fixed_base():
+                return self.lagrange_fb_table().msm_mont(batch)
+            return msm(self._lagrange_msm_bases(), batch)
 
     def _sharded_commit(self, batch):
         """Projective sums of a (P, n, 8) batch through the sharded chain MSM
@@ -191,11 +200,12 @@ class KZG:
     def apply_blind_factors(self, cm, blinds: List[int], zeroing_degree: int):
         """cm + sum_i b_i * (G_i - G_{zeroing+i}) (kzg:299-313)."""
         out = cm
-        for i, b in enumerate(blinds):
-            if b % R_MOD == 0:
-                continue
-            out = g1_add(out, g1_mul(self.g1_powers[i], b))
-            out = g1_add(out, g1_mul(self.g1_powers[zeroing_degree + i], (-b) % R_MOD))
+        with stage("kzg_blind"):
+            for i, b in enumerate(blinds):
+                if b % R_MOD == 0:
+                    continue
+                out = g1_add(out, g1_mul(self.g1_powers[i], b))
+                out = g1_add(out, g1_mul(self.g1_powers[zeroing_degree + i], (-b) % R_MOD))
         return out
 
     # --------------------------------------------------------------- opening
@@ -268,10 +278,11 @@ class KZG:
         (pcs.rs:107-168); their quotient commitments ride one batched MSM.
         `opens`: list of (poly_blobs, point), the blobs packed 32-byte LE
         coefficients."""
-        prepared = [
-            self._prepare_open(transcript, blobs, point, max_degree)
-            for blobs, point in opens
-        ]
+        with stage("kzg_open_prepare"):
+            prepared = [
+                self._prepare_open(transcript, blobs, point, max_degree)
+                for blobs, point in opens
+            ]
         return self._commit_prepared(prepared)
 
     @staticmethod
