@@ -145,6 +145,30 @@ def test_fixed_base_proof_bytes_match_jax(both):
     assert proof_to_bytes_be(proof) == jax_proof_to_bytes_be(both["jproof"])
 
 
+def test_blinding_one_native_call_a_blinded_commit(both, monkeypatch):
+    """A proof calls the native `g1_blind` once for every
+    `apply_blind_factors` call with a nonzero blind, and the proof's bytes
+    stay the JAX package's."""
+    from uzkge_tpu_torch import kernels
+    from uzkge_tpu_torch.pcs.kzg import KZG
+    from uzkge_tpu_torch.plonk.prover import prover
+
+    blinded = []
+    apply = KZG.apply_blind_factors
+
+    def counted(self, cm, blinds, zeroing_degree):
+        blinded.append(any(b % R_MOD for b in blinds))
+        return apply(self, cm, blinds, zeroing_degree)
+
+    monkeypatch.setattr(KZG, "apply_blind_factors", counted)
+    before = kernels.CALLS.get("g1_blind", 0)
+    proof = prover(random.Random(99), Transcript(b"Test"), both["tkzg"], both["cs"],
+                   both["tpp"], both["witness"])
+    assert sum(blinded) >= 16
+    assert kernels.CALLS["g1_blind"] - before == sum(blinded)
+    assert proof_to_bytes_be(proof) == jax_proof_to_bytes_be(both["jproof"])
+
+
 def test_kzg_route_follows_fb_enabled(both, monkeypatch):
     """With no `fixed_base`, KZG routes Lagrange commits as the JAX package's
     _fb_enabled does with UZKGE_FB unset: on the CPU through the table up to

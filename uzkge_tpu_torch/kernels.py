@@ -38,7 +38,8 @@ LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
             "fb_select": 0, "fb_pair_den": 0, "fb_pair_combine": 0, "fb_fold": 0,
             "scan_leaf_reduce": 0, "scan_proj_reduce": 0, "fp_mul_chain": 0}
 # calls of each C entry point, one CUDA kernel launch each (fq_batch_inv's
-# three kinds of launch apart): counted by launch(), reset by reset_launches()
+# three kinds of launch apart): counted by launch(), reset by reset_launches();
+# also the host library's g1_blind (native_host.py), one a commit's blinding
 CALLS = {}
 _COUNT_LOCK = threading.Lock()
 

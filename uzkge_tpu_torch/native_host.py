@@ -4,13 +4,17 @@ Builds the shared object when imported, with the system C compiler (no pip
 dependencies), so that no proof pays for the build, and exposes the prover's
 host-side hot loops; a failed build raises.
 
-All scalars cross the boundary as 32-byte little-endian standard-form blobs.
+All scalars and coordinates cross the boundary as 32-byte little-endian
+standard-form blobs.
 """
 
 import ctypes
 import os
 import subprocess
 import tempfile
+
+from . import kernels
+from .constants.bn254 import R_MOD
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "csrc", "hostmath.c")
@@ -36,6 +40,8 @@ def _build():
     lib.lincomb.argtypes = [c, pu64, c, u64, u64, c]
     lib.synthetic_div.argtypes = [c, u64, c, c, c]
     lib.alpha_combine.argtypes = [c, pu64, u64, c, c, u64, c, c]
+    lib.g1_blind.argtypes = [c, ctypes.c_int, c, c, u64, c]
+    lib.g1_blind.restype = ctypes.c_int
     return lib
 
 
@@ -87,3 +93,18 @@ def z_poly_bytes(witness_blob: bytes, perm, group_blob: bytes, k, beta: int, gam
     out = ctypes.create_string_buffer(32 * n)
     _lib.z_poly(witness_blob, pbuf, group_blob, _pack(k), _pack([beta]), _pack([gamma]), n, out)
     return out.raw
+
+
+def g1_blind(cm, points, scalars):
+    """cm + sum_i scalars[i] * points[i] on BN254 G1, points as
+    curve/bn254.py has them (affine (x, y) tuples, None the identity), in one
+    native call (counted in `kernels.CALLS["g1_blind"]`); equal to folding
+    `g1_add` over `g1_mul(points[i], scalars[i])`."""
+    terms = [(p, s % R_MOD) for p, s in zip(points, scalars) if p is not None]
+    out = ctypes.create_string_buffer(64)
+    inf = _lib.g1_blind(_pack(cm or (0, 0)), cm is None, _pack(c for p, _ in terms for c in p),
+                        _pack(s for _, s in terms), len(terms), out)
+    kernels.count("g1_blind", kernels.CALLS)
+    if inf:
+        return None
+    return int.from_bytes(out.raw[:32], "little"), int.from_bytes(out.raw[32:], "little")

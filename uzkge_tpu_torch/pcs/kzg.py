@@ -13,8 +13,9 @@ Opening arithmetic and pairings stay on the host (native_host, pcs/pairing).
 Spans (utils/stagetimer.py), nested in the prover's stages: `kzg_msm` is a
 commit's whole MSM on whichever route serves it, from the digit recode
 through the read-back to host affine points; `kzg_blind` is
-`apply_blind_factors`; `kzg_open_prepare` is `batch_prove_multi`'s host
-phase (`_prepare_open`: transcript, alpha combination, division).
+`apply_blind_factors` (native_host.g1_blind); `kzg_open_prepare` is
+`batch_prove_multi`'s host phase (`_prepare_open`: transcript, alpha
+combination, division).
 
 A KZG given a torch.distributed process group (`group=`, the JAX package's
 UZKGE_MESH=1) commits in the Lagrange basis through the sharded chain MSM of
@@ -198,15 +199,16 @@ class KZG:
         return self.commit_evals_batch(evals[None] if evals.dim() == 2 else evals)[0]
 
     def apply_blind_factors(self, cm, blinds: List[int], zeroing_degree: int):
-        """cm + sum_i b_i * (G_i - G_{zeroing+i}) (kzg:299-313)."""
-        out = cm
+        """cm + sum_i b_i * (G_i - G_{zeroing+i}) (kzg:299-313): the nonzero
+        blinds' terms in one call of the native `g1_blind`."""
         with stage("kzg_blind"):
+            points, scalars = [], []
             for i, b in enumerate(blinds):
                 if b % R_MOD == 0:
                     continue
-                out = g1_add(out, g1_mul(self.g1_powers[i], b))
-                out = g1_add(out, g1_mul(self.g1_powers[zeroing_degree + i], (-b) % R_MOD))
-        return out
+                points += [self.g1_powers[i], self.g1_powers[zeroing_degree + i]]
+                scalars += [b, -b]
+            return nh.g1_blind(cm, points, scalars) if points else cm
 
     # --------------------------------------------------------------- opening
 
