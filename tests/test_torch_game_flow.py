@@ -132,9 +132,10 @@ def test_sdk_host_functions_match_jax(monkeypatch):
     assert t["indices"] == [0, 1]
     assert tsdk._RNG.random() == jsdk._RNG.random()  # the same number of draws
     # the Groth16 reveal (tests/test_torch_groth16_ark.py): the JAX
-    # package's arguments, then the device its MSMs and NTTs run on
+    # package's arguments, then the device its MSMs and NTTs run on and the
+    # source of its proof's r and s (tests/test_torch_reveal_cell.py)
     assert list(inspect.signature(tsdk.reveal_card_with_snark).parameters) == [
-        *inspect.signature(jsdk.reveal_card_with_snark).parameters, "device"]
+        *inspect.signature(jsdk.reveal_card_with_snark).parameters, "device", "rng"]
 
 
 def test_sdk_default_rng_is_a_csprng():

@@ -8,7 +8,9 @@ affine points.
   * qap_witness_map(device="cpu") (NTTDomain's plain passes) against the JAX
     package's host witness map on the real reveal synthesis, domain 8192;
   * groth16_prove_with_pk(device="cpu") against the JAX package's host
-    prover with the same r and s, on a stub ArkGroth16Pk that needs no key
+    prover with the same r and s, and its spans (the witness map's
+    g16_rows_host and g16_qap_device inside g16_witness_map; g16_msm_bases
+    on the first call only), on a stub ArkGroth16Pk that needs no key
     load: its G1 queries successive multiples of G (some identities among
     them), its G2 query successive multiples of the G2 generator, its
     matrices and assignment the 700-product chain's (domain 1024) laid out
@@ -38,6 +40,7 @@ from uzkge_tpu_torch.groth16 import ark_prove as pa
 from uzkge_tpu_torch.groth16.ark_pk import ArkGroth16Pk, ArkGroth16Vk
 from uzkge_tpu_torch.groth16.ark_r1cs import synthesize_reveal
 from uzkge_tpu_torch.groth16.reveal import seeded_reveal
+from uzkge_tpu_torch.utils import stagetimer
 
 from .torch_golden import g16toy_circuit
 
@@ -110,6 +113,29 @@ def test_prove_with_stub_pk_matches_jax_host():
     got = pa.groth16_prove_with_pk(pk, matrices, z, ni, r, s, device="cpu")
     assert got == jprove(want_pk, matrices, z, ni, r, s)
     assert set(pk._msm_cache) == {(k, "cpu") for k in ("a", "b1", "l", "h")}
+
+
+def test_prove_with_stub_pk_spans():
+    """A recording of a stub-key proof (the 40-product chain, domain 64):
+    the witness map's host sums and device quotient nest inside
+    g16_witness_map; the MSM bases are built on the first call only."""
+    cs = g16toy_circuit(products=40).canonicalized()
+    z, ni, n = cs.assignment, cs.num_instance + 1, 64
+    matrices = tuple([dict(row[k]) for row in cs.constraints] for k in range(3))
+    pk = _stub_pk(ArkGroth16Pk, ArkGroth16Vk, _multiples(G1_GEN, g1_add, 1003),
+                  _multiples(G2_GEN, g2_add, len(z)), len(z), ni, n)
+    pk.b_g1_query = pk.a_query[1:] + pk.a_query[:1]  # the stub's is longer than z here
+    for first in (True, False):
+        with stagetimer.recording() as spans:
+            pa.groth16_prove_with_pk(pk, matrices, z, ni, 3, 5, device="cpu")
+        (wm,) = [s for s in spans if s[0] == "g16_witness_map"]
+        for name in ("g16_rows_host", "g16_qap_device"):
+            (inner,) = [s for s in spans if s[0] == name]
+            assert wm[1] <= inner[1] <= inner[2] <= wm[2] and inner[4] == wm[4] + 1
+        bases = [s for s in spans if s[0] == "g16_msm_bases"]
+        assert len(bases) == (4 if first else 0)
+        msms = [s for s in spans if s[0].startswith("g16_msm_") and s[0] != "g16_msm_bases"]
+        assert all(any(m[1] <= b[1] <= b[2] <= m[2] for m in msms) for b in bases)
 
 
 def test_entry_points_default_to_the_card():

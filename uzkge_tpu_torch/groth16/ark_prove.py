@@ -302,13 +302,15 @@ def g2_msm_host(points, scalars):
 def device_g1_msm(cache: dict, name: str, points, scalars, device):
     """<scalars, points> over G1 on `device` by the port's Pippenger, over the
     non-identity points of the query `points` (MSMBases takes no identity);
-    their bases are made once and kept in `cache` under (name, device).
+    their bases are made once (span `g16_msm_bases`) and kept in `cache`
+    under (name, device).
     Returns an affine host point, None for the identity."""
     key = (name, str(device))
     cached = cache.get(key)
     if cached is None:
-        idx = [i for i, p in enumerate(points) if p is not None]
-        cached = (idx, MSMBases([points[i] for i in idx], device) if idx else None)
+        with stage("g16_msm_bases"):
+            idx = [i for i, p in enumerate(points) if p is not None]
+            cached = (idx, MSMBases([points[i] for i in idx], device) if idx else None)
         cache[key] = cached
     idx, bases = cached
     if bases is None:
@@ -352,15 +354,19 @@ def qap_witness_map(
     device=None,
 ) -> List[int]:
     """h coefficients (len n-1) per LibsnarkReduction::witness_map, the NTTs
-    on `device` (the card by default, see device.py::resolve)."""
+    on `device` (the card by default, see device.py::resolve).  Spans:
+    `g16_rows_host` (the rows' sums on the host), `g16_qap_device`
+    (coset_quotient, from the upload of the rows to h on the host)."""
     dev = resolve(device)
     nc = len(a_rows)
-    a = _row_evals(a_rows, assignment, domain_n)
-    for j in range(num_instance):
-        a[nc + j] = assignment[j]
-    b = _row_evals(b_rows, assignment, domain_n)
-    c = _row_evals(c_rows, assignment, domain_n)
-    h = coset_quotient([a, b, c], domain_n, dev)
+    with stage("g16_rows_host"):
+        a = _row_evals(a_rows, assignment, domain_n)
+        for j in range(num_instance):
+            a[nc + j] = assignment[j]
+        b = _row_evals(b_rows, assignment, domain_n)
+        c = _row_evals(c_rows, assignment, domain_n)
+    with stage("g16_qap_device"):
+        h = coset_quotient([a, b, c], domain_n, dev)
     assert h[domain_n - 1] == 0, "QAP division remainder: matrices do not match"
     return h[: domain_n - 1]
 

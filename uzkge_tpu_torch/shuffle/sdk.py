@@ -181,16 +181,19 @@ def reveal_card(sk: str, card: List[str]) -> dict:
     return {"card": point_to_hex(share), "proof": "0x" + proof.to_uncompress().hex()}
 
 
-def reveal_card_with_snark(sk: str, card: List[str], device=None) -> dict:
+def reveal_card_with_snark(sk: str, card: List[str], device=None, rng=None) -> dict:
     """Reveal share plus a Groth16 proof the DEPLOYED Groth16Verifier.sol
     accepts (sdk.rs:288-326).  snark_proof word order matches the contract
     calldata: [a.x, a.y, b.x.c1, b.x.c0, b.y.c1, b.y.c0, c.x, c.y].  The
-    proof's witness map and G1 MSMs run on `device` (the card by default)."""
+    proof's witness map and G1 MSMs run on `device` (the card by default).
+    The proof's randomness r, s comes from `rng` (a `random.Random`-like
+    source), `_RNG` when none is given."""
     from ..groth16.reveal import prove_reveal_onchain
 
     secret = hex_to_scalar(sk)
     masked = masked_card_deserialize(card)
-    reveal_pt, (A, B, C) = prove_reveal_onchain(secret, masked.e1, rng=_RNG, device=device)
+    reveal_pt, (A, B, C) = prove_reveal_onchain(secret, masked.e1,
+                                                rng=_RNG if rng is None else rng, device=device)
     snark_proof = [
         scalar_to_hex(A[0]), scalar_to_hex(A[1]),
         scalar_to_hex(B[0][1]), scalar_to_hex(B[0][0]),
