@@ -140,18 +140,21 @@ Phases, any failure exits nonzero:
      1024) are made on the host in 2 spawned worker processes started
      before the kernel build; prove_reveal_onchain for the seeded sk and
      masked e1 (key "reveal") on the card, its witness map's six ntt_pass
-     launches and four G1 MSMs (n = 2823, 4094, 4862, 8191, P = 1) on the
-     card, the G2 MSM on the host, with its stage times: the sha256 of its
-     Solidity words and reveal point must equal the JAX package's,
-     verify_reveal_onchain must accept it and reject the reveal point
-     changed by one, and ntt_pass and both Pippenger kernels must have
-     been launched; a second reveal profiled (device busy, idle share,
-     device time by kernel); sdk.reveal_card_with_snark on the card, its
-     proof verified; msm_bucket_accumulate and msm_bucket_reduce at each of
-     the reveal's four MSMs on its own bases and scalars, timed, the
-     accumulate against its plain version (the reduce's buckets have phase
-     3's P = 1 shape; at n = 2823 and 8191 the result against the host
-     Pippenger), and
+     launches and four G1 MSMs (n = 2823, 4094, 4862, 8191, P = 1) and its
+     G2 MSM (msm_g2.py: 4096 bases with beta_g2 and delta_g2) on the card,
+     with its stage times: the sha256 of its Solidity words and reveal
+     point must equal the JAX package's, verify_reveal_onchain must accept
+     it and reject the reveal point changed by one, ntt_pass and both
+     Pippenger kernels must have been launched and each G2 kernel once; a
+     second reveal profiled (device busy, idle share, device time by
+     kernel); sdk.reveal_card_with_snark on the card, its proof verified;
+     msm_bucket_accumulate and msm_bucket_reduce at each of the reveal's
+     four MSMs on its own bases and scalars, timed, the accumulate against
+     its plain version (the reduce's buckets have phase 3's P = 1 shape; at
+     n = 2823 and 8191 the result against the host Pippenger);
+     g2_bucket_accumulate and g2_bucket_reduce on the reveal's own G2 bases
+     (the key's cached host limbs) and scalars (the assignment, 1, s), each
+     timed beside its plain version and equal to it limb for limb; and
      ntt_pass at each of its passes; then groth16.prove of the chain on the
      card (key "g16toy"), verified, a wrong public input rejected;
  10. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
@@ -174,9 +177,10 @@ Phases, any failure exits nonzero:
      the four build kernels also mm_setup_ms, their device time in the
      profiled n = 8192 build, and fp_mont_mul and fq_batch_inv
      mm_setup_events_ms, mm_setup_plain_ms, mm_setup_bound_ms at the build's
-     shapes; ntt_pass and the Pippenger's two also their numbers on the
-     reveal: g16_launches, g16_proof_ms (its profile) and, summed over the
-     reveal's shapes, g16_events_ms, g16_plain_ms, g16_bound_ms; the card
+     shapes; ntt_pass, the Pippenger's two and the G2 Pippenger's two also
+     their numbers on the reveal: g16_launches, g16_proof_ms (its profile)
+     and, summed over the reveal's shapes, g16_events_ms, g16_plain_ms,
+     g16_bound_ms; the card
      line,
      and last the contract line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -207,6 +211,10 @@ b3 = 3 * 3 = 9 cost no multiply (three doublings and an addition, as
 field.cuh's g1_madd and g1_padd do them); the kernels double with Alg. 7
 (g1_padd, or g1_dbl_ls in fb_bases: 12 products), so a doubling's bound
 counts fewer products than they run.
+Over G2 (csrc/g2.cuh) an Fq2 product counts 3 Montgomery products
+(Karatsuba) and a square 2, and the products by b3 = 9 / (9 + u) are full
+Fq2 products: a mixed addition 13 Fq2 products (39), a projective addition
+14 (42), a doubling 2 squares and 7 products (25).
 A batch inversion of N elements needs 3 (N - 1) products and one Fermat
 inversion: the yardstick stays that, though fq_batch_inv inverts its group
 products by safegcd.  An affine pair addition given the inverse needs 3
@@ -2137,7 +2145,12 @@ def sdk_path(ctx, n=52):
 
 # ------------------------------------------------------------------- groth16
 
-G16_KERNELS = ("ntt_pass", "msm_bucket_accumulate", "msm_bucket_reduce")  # the reveal's
+G16_G1_KERNELS = ("ntt_pass", "msm_bucket_accumulate", "msm_bucket_reduce")  # groth16.prove's
+G2_KERNELS = ("g2_bucket_accumulate", "g2_bucket_reduce")  # the reveal's G2 MSM, once each
+G16_KERNELS = G16_G1_KERNELS + G2_KERNELS  # the reveal's
+G2_ACC_KERNELS = ("g2_bucket_accumulate_sort_kernel", "g2_bucket_accumulate_piece_kernel",
+                  "g2_bucket_accumulate_merge_kernel")  # g2_bucket_accumulate's launches
+G2_MADD_PRODUCTS, G2_PADD_PRODUCTS, G2_DBL_PRODUCTS = 39, 42, 25  # Montgomery products
 G16_QUERIES = ("a", "b1", "l", "h")  # the G1 MSMs of a proof, in groth16_prove_with_pk's order
 
 
@@ -2237,11 +2250,74 @@ def check_g16_msms(dev, apk, cs, rate):
     return tot
 
 
+def g2_acc_bound(std, n: int, rate) -> dict:
+    """g2_bucket_accumulate's bound: a mixed addition over Fq2 per nonzero
+    digit; the (n, 4, 8) bases and the scalars read once, the 32 x 256
+    buckets (192 B each) written once."""
+    from uzkge_tpu_torch.msm import msm as M
+
+    nonzero = int((M._digits(std) != 0).sum())
+    return bound(n * 128 + n * 32 + M.N_WINDOWS * M.N_BUCKETS * 192,
+                 nonzero * G2_MADD_PRODUCTS, rate)
+
+
+def g2_reduce_bound(rate) -> dict:
+    """g2_bucket_reduce's bound: reduce_bound's count at (P, K) = (1, 1),
+    542 additions and 4 doublings a window, in Fq2; the buckets read once,
+    the window sums written once."""
+    from uzkge_tpu_torch.msm import msm as M
+
+    adds = M.N_WINDOWS * (16 * 30 + 15 + 47)
+    return bound(M.N_WINDOWS * M.N_BUCKETS * 192 + M.N_WINDOWS * 192,
+                 adds * G2_PADD_PRODUCTS + M.N_WINDOWS * 4 * G2_DBL_PRODUCTS, rate)
+
+
+def check_g2_msm(dev, apk, cs, s, rate):
+    """g2_bucket_accumulate and g2_bucket_reduce on the reveal's own G2 MSM:
+    the key's cached host limbs of b_g2_query's non-identity points with
+    beta_g2 and delta_g2 (ark_prove.device_g2_msm's, copied in as it copies
+    them) and the scalars z + [1, s]; each timed (CUDA events, mean of 5)
+    beside its plain version on the same tensors (cold, one call) and equal
+    to it limb for limb.  Returns each kernel's row for the kernels line
+    and its g16_* numbers for one reveal."""
+    from uzkge_tpu_torch.constants.bn254 import R_MOD
+    from uzkge_tpu_torch.ff.field import ints_to_limbs
+    from uzkge_tpu_torch.msm import msm_g2 as MG
+
+    idx, host_bases = apk._msm_cache["b2"]
+    z = cs.assignment() + [1, s]
+    bases = host_bases.to(dev)
+    std = torch.from_numpy(ints_to_limbs(z[i] % R_MOD for i in idx)).to(dev)
+    n, L = len(idx), MG.G2_PIECE
+    ms, kb = cuda_ms(lambda: MG.g2_bucket_accumulate(bases, std, L))
+    pms, pb = cuda_ms(lambda: MG.g2_bucket_accumulate_plain(bases, std, L), reps=0)
+    if not torch.equal(kb, pb):
+        raise AssertionError(f"g2_bucket_accumulate (reveal's G2 MSM, n={n}, L={L}) disagrees "
+                             "with its plain version")
+    rms, ks = cuda_ms(lambda: MG.g2_bucket_reduce(kb))
+    rpms, ps = cuda_ms(lambda: MG.g2_bucket_reduce_plain(kb), reps=0)
+    if not torch.equal(ks, ps):
+        raise AssertionError(f"g2_bucket_reduce (reveal's G2 MSM, n={n}) disagrees with its "
+                             "plain version")
+    a, r = g2_acc_bound(std[None], n, rate), g2_reduce_bound(rate)
+    log(f"G2 Pippenger at the reveal's G2 MSM (n={n}, L={L}): g2_bucket_accumulate {ms:.4f} ms "
+        f"(plain {pms:.4f}, bound {a['bound_ms']:.4f} {a['bound_by']}), g2_bucket_reduce "
+        f"{rms:.4f} ms (plain {rpms:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']}); both equal "
+        "to their plain versions limb for limb")
+    out = {}
+    for k, t, pt, b, shape in (("g2_bucket_accumulate", ms, pms, a, f"n={n} L={L}"),
+                               ("g2_bucket_reduce", rms, rpms, r, "32 x 256 buckets")):
+        out[k] = {"max_abs_err": 0, "ms": t, "plain_ms": pt, "shape": shape, **b,
+                  "g16_events_ms": t, "g16_plain_ms": pt, "g16_bound_ms": b["bound_ms"]}
+    del kb, pb, ks, ps, bases, std
+    return out
+
+
 def groth16_path(dev, goldens, rate, errs, pending):
     """The Groth16 phase.  The reveal for the deployed verifier, through its
     entry point: prove_reveal_onchain for the golden seed on the card (the
-    embedded key, domain 8192; its witness map's NTTs and four G1 MSMs on
-    the card, the G2 MSM on the host), its words' sha256 equal to the JAX
+    embedded key, domain 8192; its witness map's NTTs, four G1 MSMs and
+    the G2 MSM on the card), its words' sha256 equal to the JAX
     package's (`reveal`), verify_reveal_onchain accepting it and rejecting
     the reveal point changed by one, ntt_pass and both Pippenger kernels
     launched; a profiled second reveal; sdk.reveal_card_with_snark on the
@@ -2280,6 +2356,9 @@ def groth16_path(dev, goldens, rate, errs, pending):
     missing = [k for k in G16_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the reveal launched no {missing}")
+    g2_launches = {k: launches[k] for k in G2_KERNELS}
+    if any(v != 1 for v in g2_launches.values()):
+        raise AssertionError(f"the reveal's G2 launches {g2_launches}, want one of each")
     log("ntt_pass shapes of the reveal (OUT, S, IN, pre, post, const): launches " +
         json.dumps({str(k): v for k, v in sorted(shapes.counts.items())}))
     check_digest(g16_words(reveal.onchain_words(reveal_pt, proof)), golden, "reveal")
@@ -2309,6 +2388,9 @@ def groth16_path(dev, goldens, rate, errs, pending):
 
     cs = synthesize_reveal(sk, e1, reveal_pt, pk_pt)
     res = check_g16_msms(dev, apk, cs, rate)
+    rs = random.Random(seed)  # prove_reveal_onchain draws r, then s
+    rs.randrange(1, R_MOD)
+    res.update(check_g2_msm(dev, apk, cs, rs.randrange(1, R_MOD), rate))
     ntt = time_ntt_shapes(dev, shapes.counts, rate, errs)
     res["ntt_pass"] = {"g16_events_ms": ntt["ms"], "g16_plain_ms": ntt["plain_ms"],
                        "g16_bound_ms": ntt["bound_ms"]}
@@ -2320,7 +2402,7 @@ def groth16_path(dev, goldens, rate, errs, pending):
         lambda: g16.prove(tpk, tcs, rng=ChaCha20Rng(toy["seed"].to_bytes(32, "little")),
                           device=dev),
         f"groth16.prove (own shape: {toy['products']}-product chain, domain {tpk.domain_size})")
-    missing = [k for k in G16_KERNELS if tlaunch[k] <= 0]
+    missing = [k for k in G16_G1_KERNELS if tlaunch[k] <= 0]
     if missing:
         raise AssertionError(f"the own-shape proof launched no {missing}")
     check_digest(g16_words(tproof.to_solidity_words()), toy, "g16toy")
@@ -2342,7 +2424,8 @@ def groth16_path(dev, goldens, rate, errs, pending):
 
 
 # the wrappers' kernels as the profiles name them
-PROFILE_NAMES = {"msm_bucket_accumulate": ACC_KERNELS, "fq_batch_inv": (
+PROFILE_NAMES = {"msm_bucket_accumulate": ACC_KERNELS, "g2_bucket_accumulate": G2_ACC_KERNELS,
+                 "fq_batch_inv": (
     "fq_inv_down_kernel", "fq_inv_root_kernel", "fq_inv_up_kernel")}
 
 
@@ -2448,10 +2531,12 @@ def run_phases(dev, goldens, start, pending):
     launches.update({k: fb_launches[k] for k in SETUP_KERNELS})
     launches.update({k: group_launches[k] for k in ("scan_leaf_reduce", "scan_proj_reduce")})
     launches["fb_bases_chain"] = group_launches["fb_bases"]  # one per msm_chain call
+    launches.update({k: g16[k]["g16_launches"] for k in G2_KERNELS})  # their path: the reveal
 
     fb_src = "uzkge_tpu_torch/csrc/fixed_base.cu"
     q_src = "uzkge_tpu_torch/csrc/fixed_base_query.cu"
     s_src = "uzkge_tpu_torch/csrc/scan_reduce.cu"
+    g2_src = "uzkge_tpu_torch/csrc/msm_g2.cu"
     jfb = "uzkge_tpu/msm/fixed_base.py"
     rows = [
         ("ntt_pass", "uzkge_tpu_torch/csrc/ntt.cu", "uzkge_tpu/ntt/pallas_ntt.py:87", ntt),
@@ -2471,6 +2556,11 @@ def run_phases(dev, goldens, start, pending):
         ("fb_fold", q_src, f"{jfb}:680", qres["fb_fold"]),
         ("scan_leaf_reduce", s_src, f"{jfb}:195", chain["scan_leaf_reduce"]),
         ("scan_proj_reduce", s_src, f"{jfb}:215", chain["scan_proj_reduce"]),
+        # the host Pippenger g2_msm_host (_pippenger over Fq2)
+        ("g2_bucket_accumulate", g2_src, "uzkge_tpu/groth16/ark_prove.py:207,280",
+         g16.pop("g2_bucket_accumulate")),
+        ("g2_bucket_reduce", g2_src, "uzkge_tpu/groth16/ark_prove.py:207,280",
+         g16.pop("g2_bucket_reduce")),
     ]
     for name, _, _, res in rows:
         res.update(matchmaking_row(name, mm))

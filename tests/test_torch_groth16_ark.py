@@ -9,14 +9,16 @@ affine points.
     package's host witness map on the real reveal synthesis, domain 8192;
   * groth16_prove_with_pk(device="cpu") against the JAX package's host
     prover with the same r and s, and its spans (the witness map's
-    g16_rows_host and g16_qap_device inside g16_witness_map; g16_msm_bases
-    on the first call only), on a stub ArkGroth16Pk that needs no key
-    load: its G1 queries successive multiples of G (some identities among
-    them), its G2 query successive multiples of the G2 generator, its
+    g16_rows_host and g16_qap_device inside g16_witness_map; g16_msm_bases,
+    for the four G1 queries and the G2 one, on the first call only), on a
+    stub ArkGroth16Pk that needs no key load: its G1 queries successive
+    multiples of G (some identities among them), its G2 query successive
+    multiples of the G2 generator, its
     matrices and assignment the 700-product chain's (domain 1024) laid out
     as ark_r1cs.Synth.matrices() lays them out, so that the a, b1, l and h
     MSMs (625, 636, 700 and 1023 points) exceed HOST_MSM_MAX = 512 and
-    reach the Pippenger's plain versions;
+    reach the Pippenger's plain versions, and the G2 MSM (703 query points
+    and beta_g2, delta_g2, which the query also holds) runs msm_g2's;
   * without a card the entry points raise rather than fall back;
   * slow (the embedded key's load alone is 36-45 s): prove_reveal_onchain
     for the golden seed, its words' sha256 equal to the JAX package's
@@ -112,7 +114,7 @@ def test_prove_with_stub_pk_matches_jax_host():
     r, s = rng.randrange(1, R_MOD), rng.randrange(1, R_MOD)
     got = pa.groth16_prove_with_pk(pk, matrices, z, ni, r, s, device="cpu")
     assert got == jprove(want_pk, matrices, z, ni, r, s)
-    assert set(pk._msm_cache) == {(k, "cpu") for k in ("a", "b1", "l", "h")}
+    assert set(pk._msm_cache) == {(k, "cpu") for k in ("a", "b1", "l", "h")} | {"b2"}
 
 
 def test_prove_with_stub_pk_spans():
@@ -133,7 +135,7 @@ def test_prove_with_stub_pk_spans():
             (inner,) = [s for s in spans if s[0] == name]
             assert wm[1] <= inner[1] <= inner[2] <= wm[2] and inner[4] == wm[4] + 1
         bases = [s for s in spans if s[0] == "g16_msm_bases"]
-        assert len(bases) == (4 if first else 0)
+        assert len(bases) == (5 if first else 0)
         msms = [s for s in spans if s[0].startswith("g16_msm_") and s[0] != "g16_msm_bases"]
         assert all(any(m[1] <= b[1] <= b[2] <= m[2] for m in msms) for b in bases)
 

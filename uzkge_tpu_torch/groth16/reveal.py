@@ -194,7 +194,7 @@ def verify_reveal_snark(masked_e1, reveal_pt, player_pk,
 def prove_reveal_onchain(sk: int, masked_e1, rng=None, device=None):
     """Returns (reveal_point, (A, B, C)) where the proof verifies under the
     deployed contract's vk.  A, C are G1 affine; B is G2 affine.  The
-    witness map and the G1 MSMs run on `device` (the card by default)."""
+    witness map and the G1 and G2 MSMs run on `device` (the card by default)."""
     import random as _random
 
     from .ark_pk import load_reference_groth16_pk

@@ -8,7 +8,7 @@ lands in `uzkge_tpu_torch/build/`, which .gitignore lists.
 
 Each C entry point enqueues its kernel on the stream it is given and returns
 `cudaGetLastError()`.  The Python wrappers (ff/cuda_field.py,
-ntt/cuda_ntt.py, msm/msm.py, msm/fixed_base.py) check their arguments,
+ntt/cuda_ntt.py, msm/msm.py, msm/msm_g2.py, msm/fixed_base.py) check their arguments,
 allocate outputs with torch.empty, pass
 `torch.cuda.current_stream().cuda_stream`, raise on a nonzero return, and
 add one to their entry of LAUNCHES for every kernel launched (`count()`).
@@ -26,9 +26,9 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("ntt.cu", "msm.cu", "mont_mul.cu", "fixed_base.cu", "fixed_base_query.cu",
-           "scan_reduce.cu")
+           "scan_reduce.cu", "msm_g2.cu")
 HEADERS = ("field.cuh", "fixed_base.cuh", "fixed_base_query.cuh", "scan_reduce.cuh",
-           "ntt.cuh", "msm.cuh", "launch.cuh")
+           "ntt.cuh", "msm.cuh", "launch.cuh", "g2.cuh", "msm_g2.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 # launch counts per kernel: plain integers, added to by count() and reset by
@@ -36,7 +36,8 @@ ARCH = "arch=compute_90a,code=sm_90a"
 LAUNCHES = {"ntt_pass": 0, "msm_bucket_accumulate": 0, "msm_bucket_reduce": 0,
             "fp_mont_mul": 0, "fb_bases": 0, "fb_mult_chunk": 0, "fq_batch_inv": 0,
             "fb_select": 0, "fb_pair_den": 0, "fb_pair_combine": 0, "fb_fold": 0,
-            "scan_leaf_reduce": 0, "scan_proj_reduce": 0, "fp_mul_chain": 0}
+            "scan_leaf_reduce": 0, "scan_proj_reduce": 0, "fp_mul_chain": 0,
+            "g2_bucket_accumulate": 0, "g2_bucket_reduce": 0}
 # calls of each C entry point, one CUDA kernel launch each (fq_batch_inv's
 # three kinds of launch apart): counted by launch(), reset by reset_launches();
 # also the host library's g1_blind (native_host.py), one a commit's blinding
@@ -85,6 +86,10 @@ _SIGNATURES = {
     "scan_leaf_reduce_launch": [_P] * 6 + [_L, _L, _L, _I, _P],
     # X, Y, Z, oX, oY, oZ, lanes, S, stream
     "scan_proj_reduce_launch": [_P] * 6 + [_L, _I, _P],
+    # bases, std, buckets, idx, meta, extra, n, L, stream
+    "g2_bucket_accumulate_launch": [_P] * 6 + [_I, _I, _P],
+    # buckets, out, stream
+    "g2_bucket_reduce_launch": [_P, _P, _P],
 }
 
 

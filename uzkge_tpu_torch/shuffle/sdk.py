@@ -185,7 +185,7 @@ def reveal_card_with_snark(sk: str, card: List[str], device=None, rng=None) -> d
     """Reveal share plus a Groth16 proof the DEPLOYED Groth16Verifier.sol
     accepts (sdk.rs:288-326).  snark_proof word order matches the contract
     calldata: [a.x, a.y, b.x.c1, b.x.c0, b.y.c1, b.y.c0, c.x, c.y].  The
-    proof's witness map and G1 MSMs run on `device` (the card by default).
+    proof's witness map and G1 and G2 MSMs run on `device` (the card by default).
     The proof's randomness r, s comes from `rng` (a `random.Random`-like
     source), `_RNG` when none is given."""
     from ..groth16.reveal import prove_reveal_onchain
