@@ -156,7 +156,8 @@ Phases, any failure exits nonzero:
      (the key's cached host limbs) and scalars (the assignment, 1, s), each
      timed beside its plain version and equal to it limb for limb; and
      ntt_pass at each of its passes; then groth16.prove of the chain on the
-     card (key "g16toy"), verified, a wrong public input rejected;
+     card (key "g16toy"), which must launch the reveal's kernels and no
+     other, each G2 kernel once, verified, a wrong public input rejected;
  10. a kernels JSON line (per kernel: launches on its path, ms, plain ms, the
      bound worked out from this run's shapes and what bounds it, and the time
      of one PyTorch call computing the same function where there is one:
@@ -2145,13 +2146,13 @@ def sdk_path(ctx, n=52):
 
 # ------------------------------------------------------------------- groth16
 
-G16_G1_KERNELS = ("ntt_pass", "msm_bucket_accumulate", "msm_bucket_reduce")  # groth16.prove's
-G2_KERNELS = ("g2_bucket_accumulate", "g2_bucket_reduce")  # the reveal's G2 MSM, once each
-G16_KERNELS = G16_G1_KERNELS + G2_KERNELS  # the reveal's
+G2_KERNELS = ("g2_bucket_accumulate", "g2_bucket_reduce")  # a proof's G2 MSM, once each
+# a Groth16 proof's kernels, the reveal's and groth16.prove's alike (ark_prove.prove_tail)
+G16_KERNELS = ("ntt_pass", "msm_bucket_accumulate", "msm_bucket_reduce") + G2_KERNELS
 G2_ACC_KERNELS = ("g2_bucket_accumulate_sort_kernel", "g2_bucket_accumulate_piece_kernel",
                   "g2_bucket_accumulate_merge_kernel")  # g2_bucket_accumulate's launches
 G2_MADD_PRODUCTS, G2_PADD_PRODUCTS, G2_DBL_PRODUCTS = 39, 42, 25  # Montgomery products
-G16_QUERIES = ("a", "b1", "l", "h")  # the G1 MSMs of a proof, in groth16_prove_with_pk's order
+G16_QUERIES = ("a", "b1", "l", "h")  # the G1 MSMs of a proof, in ark_prove.prove_tail's order
 
 
 def _g16_load_pk():
@@ -2402,9 +2403,10 @@ def groth16_path(dev, goldens, rate, errs, pending):
         lambda: g16.prove(tpk, tcs, rng=ChaCha20Rng(toy["seed"].to_bytes(32, "little")),
                           device=dev),
         f"groth16.prove (own shape: {toy['products']}-product chain, domain {tpk.domain_size})")
-    missing = [k for k in G16_G1_KERNELS if tlaunch[k] <= 0]
-    if missing:
-        raise AssertionError(f"the own-shape proof launched no {missing}")
+    launched = sorted(k for k, v in tlaunch.items() if v > 0)
+    if launched != sorted(G16_KERNELS) or any(tlaunch[k] != 1 for k in G2_KERNELS):
+        raise AssertionError(f"the own-shape proof launched {tlaunch}, want every one of "
+                             f"{G16_KERNELS} and nothing else, each G2 kernel once")
     check_digest(g16_words(tproof.to_solidity_words()), toy, "g16toy")
     public = tcs.public_inputs()
     ok = g16.verify(tpk.vk, public, tproof)
@@ -2556,7 +2558,7 @@ def run_phases(dev, goldens, start, pending):
         ("fb_fold", q_src, f"{jfb}:680", qres["fb_fold"]),
         ("scan_leaf_reduce", s_src, f"{jfb}:195", chain["scan_leaf_reduce"]),
         ("scan_proj_reduce", s_src, f"{jfb}:215", chain["scan_proj_reduce"]),
-        # the host Pippenger g2_msm_host (_pippenger over Fq2)
+        # the JAX package's host Pippenger g2_msm_host (_pippenger over Fq2)
         ("g2_bucket_accumulate", g2_src, "uzkge_tpu/groth16/ark_prove.py:207,280",
          g16.pop("g2_bucket_accumulate")),
         ("g2_bucket_reduce", g2_src, "uzkge_tpu/groth16/ark_prove.py:207,280",

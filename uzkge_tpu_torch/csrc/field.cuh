@@ -112,8 +112,8 @@ ZK_HD void fp_neg(uint32_t r[8], const uint32_t a[8]) {
 // T < 2^255 leaves the ninth word 0 at the end of a round.  The result
 // T < 2p takes one conditional subtraction.  This form is the card's one
 // Montgomery product: a PTX form with mad.lo.cc / madc.hi.cc carry chains
-// was measured beside it on the H100 (uzkge_tpu_torch/product_forms.py) and
-// ran slower inside the kernels.
+// was measured beside it on the H100 and ran slower inside the kernels
+// (PERF.md).
 //
 // One fp_mul is one dependency chain through its carries.  Where a formula
 // has independent products, fp_mul_n below issues N of them word by word in
@@ -125,8 +125,7 @@ ZK_HD void fp_neg(uint32_t r[8], const uint32_t a[8]) {
 // instruction just before it.  So the lockstep buys little: pairs ran
 // 1.5 % (fb_bases) and 3 % (fb_mult_chunk) faster than one product at a
 // time on an H100 80GB HBM3 at 700 W, where these kernels are bound by the
-// count of instructions issued (uzkge_tpu_torch/tune_fixed_base.py;
-// PERF.md).
+// count of instructions issued (PERF.md).
 template <class F>
 ZK_HD void fp_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   uint32_t t[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};

@@ -30,10 +30,9 @@
 //   its products in lockstep pairs, 3 % faster than one at a time; 154
 //   registers, no spill.  Row j of the output is (K, 8) contiguous, so a
 //   warp's 32 lanes store 1 KB together.
-// The lockstep widths, squarings and block shapes were chosen by
-//   uzkge_tpu_torch/tune_fixed_base.py, which builds edited copies of these
-//   sources and prints each one's registers, SASS counts, times and issue
-//   rate (PERF.md).
+// The lockstep widths, squarings and block shapes were chosen by timing
+//   edited copies of these sources beside one another, with their
+//   registers, SASS counts and issue rates (PERF.md).
 // fq_batch_inv replaces _prod_kernel (:274) and _inv_kernel (:283), the
 //   product-tree inversion of pbatch_inv_fq, and _prefix_kernel (:334),
 //   _invback_kernel (:345) and _fermat_bits_kernel (:355) of

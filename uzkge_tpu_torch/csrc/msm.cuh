@@ -83,9 +83,9 @@ ZK_HD void msm_ld_l2(G1Proj &q, const uint32_t *p) {
 #endif
 }
 
-// r += q: RCB Alg. 7 (g1_padd; its products in lockstep pairs, tune_reduce.py's
-// padd_ls2, need 178 registers here against 116, one block a SM instead of
-// two, and were no faster).
+// r += q: RCB Alg. 7 (g1_padd; its products in lockstep pairs need 178
+// registers here against 116, one block a SM instead of two, and were no
+// faster).
 ZK_HD void msm_add(G1Proj &r, const G1Proj &q) { g1_padd(r, r, q); }
 
 // Sums each thread's point r over the threads t, t + stride, t + 2 stride,

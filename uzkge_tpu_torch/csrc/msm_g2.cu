@@ -1,15 +1,15 @@
 // Variable-base Pippenger MSM over BN254 G2, one MSM (P = 1): bucket
 // accumulation and the windows' weighted bucket sums, the device half of
-// msm/msm_g2.py.  The Groth16 prover's B = beta_g2 + <z, b_g2_query> +
+// msm/msm_g2.py.  A Groth16 proof's B = beta_g2 + <z, b_g2_query> +
 // s delta_g2 runs as one such MSM (groth16/ark_prove.py::device_g2_msm).
 //
 // It replaces no TPU kernel: the JAX package computes this MSM on the host
-// (groth16/ark_prove.py::g2_msm_host, a Jacobian Pippenger over Python
-// integers), 5.9 s of a 7.5 s reveal on the card's host.  Window c = 8 as
-// for G1: 32 windows of 256 buckets, digit w of a scalar being byte w of its
-// 32-byte standard form.  Bound: operations, 13 Fq2 products (39 Montgomery
-// products) a mixed addition per nonzero digit, against 128 B an affine
-// base and 32 B a scalar read.
+// (uzkge_tpu/groth16/ark_prove.py::g2_msm_host, a Jacobian Pippenger over
+// Python integers), 5.9 s of a 7.5 s reveal on the card's host.  Window
+// c = 8 as for G1: 32 windows of 256 buckets, digit w of a scalar being
+// byte w of its 32-byte standard form.  Bound: operations, 13 Fq2 products
+// (39 Montgomery products) a mixed addition per nonzero digit, against
+// 128 B an affine base and 32 B a scalar read.
 //
 // g2_bucket_accumulate: the G1 accumulate's shape (msm.cu) at P = 1 with
 //   G2 additions.  A block of 1024 threads a window sorts its points by digit

@@ -17,7 +17,7 @@
 //   digits) on every warp with one nonzero lane; the lane instead walks its
 //   nonzero leaves by a mask of its digits (scan_leaf_lane), and a warp runs
 //   as many additions as its busiest lane (on an H100 the walk over all
-//   leaves, in the same block, took 21 % longer: tune_reduce.py).  And the
+//   leaves, in the same block, took 21 % longer).  And the
 //   block is 512 threads at 128 registers a thread, 16 warps an SM, though
 //   the lane then spills about 150 bytes: 256 threads (185 registers, 8
 //   warps) and 384 took 24 % and 7 % longer.  Rows are indexed with 32 bits

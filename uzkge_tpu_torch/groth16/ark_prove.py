@@ -28,9 +28,10 @@ MSM, B with its beta_g2 and s delta_g2 terms, through
 `msm/msm_g2.py` (g2_bucket_accumulate, g2_bucket_reduce) on `device`: the
 card unless the caller asks for the CPU, where the same code runs the
 kernels' plain versions.  The G2 MSM's 32 window sums are combined on the
-host, and the pairing stays there.  `HostDomain`, `_pippenger`,
-`g1_msm_host` and `g2_msm_host` are the JAX package's host code, kept as
-the oracle.
+host, and the pairing stays there.  `prove_tail` (the MSMs and the combine)
+serves this prover and the own-shape one (groth16.py::prove) alike.
+`HostDomain`, `_pippenger` and `g1_msm_host` are the JAX package's host
+code, kept as the oracle.
 """
 
 from typing import Dict, List, Sequence
@@ -285,7 +286,6 @@ def _g2_ops() -> _FieldOps:
 
 
 _G1F = None
-_G2F = None
 
 
 def g1_msm_host(points, scalars):
@@ -293,13 +293,6 @@ def g1_msm_host(points, scalars):
     if _G1F is None:
         _G1F = _g1_ops()
     return _pippenger(points, scalars, _G1F)
-
-
-def g2_msm_host(points, scalars):
-    global _G2F
-    if _G2F is None:
-        _G2F = _g2_ops()
-    return _pippenger(points, scalars, _G2F)
 
 
 # ------------------------------------------------------------- device MSMs
@@ -413,19 +406,26 @@ def groth16_prove_with_pk(
     device=None,
 ):
     """Produce (A_g1, B_g2, C_g1) for the assignment under the parsed ark pk,
-    the witness map and the G1 MSMs on `device` (the card by default)."""
+    the witness map and the MSMs on `device` (the card by default)."""
     dev = resolve(device)
     a_rows, b_rows, c_rows = matrices
     with stage("g16_witness_map"):
         h = qap_witness_map(a_rows, b_rows, c_rows, assignment, num_instance, pk.domain_size,
                             dev)
+    return prove_tail(pk, assignment, assignment[num_instance:], h, r, s, dev)
 
-    z = assignment
-    wit = z[num_instance:]
+
+def prove_tail(pk, z: List[int], wit: List[int], h: List[int], r: int, s: int, device):
+    """(A_g1, B_g2, C_g1) of a Groth16 proof from the assignment z, its
+    witness slice `wit` (the l_query's scalars), the quotient's coefficients
+    h and the blinders r, s, under a key `pk` of either shape: it reads
+    vk.alpha_g1, vk.beta_g2, vk.delta_g2, beta_g1, delta_g1, the five
+    queries and the MSM cache _msm_cache.  The four G1 MSMs and the G2 MSM
+    run on `device`, each in its span; the combine runs on the host."""
 
     def g1_msm(name, points, scalars):
         with stage(f"g16_msm_{name}"):
-            return device_g1_msm(pk._msm_cache, name, points, scalars, dev)
+            return device_g1_msm(pk._msm_cache, name, points, scalars, device)
 
     a_acc = g1_msm("a", pk.a_query, z)
     b1_acc = g1_msm("b1", pk.b_g1_query, z)
@@ -435,7 +435,7 @@ def groth16_prove_with_pk(
     # `device`: from the scalars' upload to the affine B
     with stage("g16_msm_b2_host"):
         B = device_g2_msm(pk._msm_cache, "b2", pk.b_g2_query + [pk.vk.beta_g2, pk.vk.delta_g2],
-                          z + [1, s], dev)
+                          z + [1, s], device)
 
     with stage("g16_combine_host"):
         A = g1_add(pk.vk.alpha_g1, a_acc)

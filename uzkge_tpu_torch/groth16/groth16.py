@@ -9,13 +9,16 @@ one: domain size >= num_constraints + num_instance + 1, with one extra row
 are linearly independent.
 
 Counterpart of `uzkge_tpu/groth16/groth16.py`.  On the card (the default,
-see device.py::resolve) the prover's G1 MSMs (a/b/h/l queries) run on the
-port's Pippenger (msm/msm.py: msm_bucket_accumulate, msm_bucket_reduce); the
-quotient h(X) is produced by NTTDomain's ntt_pass (iNTT -> coset NTT ->
-pointwise -> coset iNTT, ark_prove.py::coset_quotient), exactly the round-3
-shape of the PLONK prover.  G2 work (one small MSM per proof), the setup and
-the verifier stay on host.  With device="cpu" the same code runs the
-kernels' plain versions.
+see device.py::resolve) the quotient h(X) is produced by NTTDomain's
+ntt_pass (iNTT -> coset NTT -> pointwise -> coset iNTT,
+ark_prove.py::coset_quotient), exactly the round-3 shape of the PLONK
+prover.  The rest of the proof is the reveal's proving tail
+(ark_prove.py::prove_tail): the G1 MSMs (a/b1/l/h queries) on the port's
+Pippenger (msm/msm.py: msm_bucket_accumulate, msm_bucket_reduce), B as one
+G2 MSM through ark_prove.py::device_g2_msm (msm/msm_g2.py:
+g2_bucket_accumulate, g2_bucket_reduce), and the combine on the host.  The
+setup and the verifier stay on host.  With device="cpu" the same code runs
+the kernels' plain versions.
 """
 
 from dataclasses import dataclass, field
@@ -27,13 +30,13 @@ from ..constants.bn254 import (
     G2_GENERATOR_X,
     G2_GENERATOR_Y,
 )
-from ..curve.bn254 import g1_add, g1_neg, g2_add
+from ..curve.bn254 import g1_add, g1_mul, g1_neg, g2_add
 from ..device import resolve
 from ..ff.host_field import Fr
 from ..pcs.pairing import multi_pairing_is_one
 from ..utils.chacha import ChaCha20Rng
 from ..utils.stagetimer import stage
-from .ark_prove import coset_quotient, device_g1_msm
+from .ark_prove import coset_quotient, prove_tail
 from .r1cs import R1CS
 
 P = R_MOD
@@ -80,37 +83,6 @@ class FixedBaseTable:
         return acc
 
 
-def g2_msm(points, scalars):
-    """Host Pippenger over G2 (c=8) — one small MSM per proof."""
-    pairs = [(p, s % P) for p, s in zip(points, scalars) if p is not None and s % P]
-    if not pairs:
-        return None
-    c = 8
-    nwin = (254 + c - 1) // c
-    acc = None
-    for win in reversed(range(nwin)):
-        if acc is not None:
-            for _ in range(c):
-                acc = g2_add(acc, acc)
-        buckets = {}
-        shift = win * c
-        for p, s in pairs:
-            d = (s >> shift) & ((1 << c) - 1)
-            if d:
-                buckets[d] = g2_add(buckets.get(d), p)
-        # descending bucket sweep: sum_d d * bucket[d]
-        running = None
-        wsum = None
-        top = max(buckets.keys(), default=0)
-        for d in range(top, 0, -1):
-            if d in buckets:
-                running = g2_add(running, buckets[d])
-            if running is not None:
-                wsum = g2_add(wsum, running)
-        acc = g2_add(acc, wsum)
-    return acc
-
-
 # --------------------------------------------------------------------------
 # keys and proof
 # --------------------------------------------------------------------------
@@ -138,12 +110,6 @@ class Groth16Pk:
     domain_size: int = 0
     num_instance: int = 0
     _msm_cache: dict = field(default_factory=dict, repr=False)
-
-    def msm(self, name, points, scalars, device=None):
-        """<scalars, points> by the port's Pippenger on `device` (the card by
-        default) over the non-identity points, the bases cached per (name,
-        device)."""
-        return device_g1_msm(self._msm_cache, name, points, scalars, resolve(device))
 
 
 @dataclass
@@ -309,7 +275,7 @@ def _h_coefficients(cs: R1CS, assignment, m: int, device):
 def prove(pk: Groth16Pk, cs: R1CS, rng: Optional[ChaCha20Rng] = None,
           device=None) -> Groth16Proof:
     """Prove a satisfied R1CS.  cs must carry the full assignment and have the
-    same circuit shape the pk was set up for.  The NTTs and G1 MSMs run on
+    same circuit shape the pk was set up for.  The NTTs and the MSMs run on
     `device` (the card by default)."""
     dev = resolve(device)
     assert cs.is_satisfied(), "witness does not satisfy the constraint system"
@@ -321,39 +287,10 @@ def prove(pk: Groth16Pk, cs: R1CS, rng: Optional[ChaCha20Rng] = None,
     r = int.from_bytes(rng.fill_bytes(32), "little") % P
     s = int.from_bytes(rng.fill_bytes(32), "little") % P
 
-    m = pk.domain_size
     with stage("g16_witness_map"):
-        h = _h_coefficients(cs, z, m, dev)
-
-    def g1_msm(name, points, scalars):
-        with stage(f"g16_msm_{name}"):
-            return pk.msm(name, points, scalars, dev)
-
-    a_acc = g1_msm("a", pk.a_query, z)
-    b1_acc = g1_msm("b1", pk.b_g1_query, z)
-    h_acc = g1_msm("h", pk.h_query, h)
-    wit = z[pk.num_instance + 1 :]
-    l_acc = g1_msm("l", pk.l_query, wit)
-    with stage("g16_msm_b2_host"):
-        b2_acc = g2_msm(pk.b_g2_query, z)
-
-    from ..curve.bn254 import g1_mul
-
-    g_a = g1_add(g1_add(pk.vk.alpha_g1, a_acc), g1_mul(pk.delta_g1, r))
-    g_b2 = g2_add(g2_add(pk.vk.beta_g2, b2_acc), _g2_mul(pk.vk.delta_g2, s))
-    g_b1 = g1_add(g1_add(pk.beta_g1, b1_acc), g1_mul(pk.delta_g1, s))
-    # C = l + h + s*A + r*B1 - rs*delta
-    g_c = g1_add(l_acc, h_acc)
-    g_c = g1_add(g_c, g1_mul(g_a, s))
-    g_c = g1_add(g_c, g1_mul(g_b1, r))
-    g_c = g1_add(g_c, g1_neg(g1_mul(pk.delta_g1, r * s % P)))
-    return Groth16Proof(a=g_a, b=g_b2, c=g_c)
-
-
-def _g2_mul(p, k):
-    from ..curve.bn254 import g2_mul
-
-    return g2_mul(p, k)
+        h = _h_coefficients(cs, z, pk.domain_size, dev)
+    a, b, c = prove_tail(pk, z, z[pk.num_instance + 1 :], h, r, s, dev)
+    return Groth16Proof(a=a, b=b, c=c)
 
 
 def verify(vk: Groth16Vk, public_inputs: List[int], proof: Groth16Proof) -> bool:
@@ -361,8 +298,6 @@ def verify(vk: Groth16Vk, public_inputs: List[int], proof: Groth16Proof) -> bool
     checked by Groth16Verifier.sol's single pairing call."""
     assert len(public_inputs) == len(vk.gamma_abc_g1) - 1
     vk_x = vk.gamma_abc_g1[0]
-    from ..curve.bn254 import g1_mul
-
     for x, pt in zip(public_inputs, vk.gamma_abc_g1[1:]):
         if pt is not None and x % P:
             vk_x = g1_add(vk_x, g1_mul(pt, x))

@@ -311,17 +311,7 @@ def fq_batch_inv(a):
         raise ValueError(f"fq_batch_inv: N = {N}, want >= 1")
     if not kernels.use_kernel(dev, "fq_batch_inv"):
         return fq_batch_inv_plain(a)
-    out = _batch_inv_launches(a, batch_inv_levels(N))
-    kernels.count("fq_batch_inv")
-    return out
-
-
-def _batch_inv_launches(a, levels):
-    """fq_batch_inv's CUDA launches on a (N, 8) on the card, down and up the
-    product tree `levels`: batch_inv_levels(N, group, roots) at any cut (the
-    cut changes the launches, not the result).  fq_batch_inv takes the
-    module's cut; tools/tune_batch_inv.py times others."""
-    dev = a.device
+    levels = batch_inv_levels(N)
     stream = kernels.stream_of(a)
     cur, down = a, []
     for n_l, m_l in levels[:-1]:
@@ -339,6 +329,7 @@ def _batch_inv_launches(a, levels):
         kernels.launch("fq_inv_up_launch", src.data_ptr(), pref.data_ptr(), inv.data_ptr(),
                        pref.data_ptr(), n_l, m_l, stream)
         inv = pref
+    kernels.count("fq_batch_inv")
     return inv
 
 

@@ -1,6 +1,6 @@
 """Variable-base multi-scalar multiplication over BN254 G2, one MSM at a time.
 
-The Groth16 prover's B = beta_g2 + <z, b_g2_query> + s delta_g2
+A Groth16 proof's B = beta_g2 + <z, b_g2_query> + s delta_g2
 (groth16/ark_prove.py::device_g2_msm) runs as one such MSM.  It is the G1
 Pippenger's shape (msm.py) at P = 1, window c = 8, with complete
 Renes-Costello-Batina additions over Fq2 (csrc/g2.cuh): two hand-written
